@@ -16,7 +16,7 @@ fuzz is displaced from 0.25 to 0.40; SGD on the MSE pixel loss walks it
 back using only rendered-image gradients.
 
 Run (CPU, ~4 min):
-  PYTHONPATH= JAX_PLATFORMS=cpu /opt/venv/bin/python examples/inverse_fuzz.py
+  JAX_PLATFORMS=cpu python examples/inverse_fuzz.py
 """
 
 from __future__ import annotations

@@ -19,7 +19,7 @@ rendered-image gradients (both silhouette families act: the occluder's
 direct silhouette and its shadow boundary on the floor).
 
 Run (CPU, ~3 min):
-  PYTHONPATH= JAX_PLATFORMS=cpu /opt/venv/bin/python examples/inverse_geometry.py
+  JAX_PLATFORMS=cpu python examples/inverse_geometry.py
 """
 
 from __future__ import annotations

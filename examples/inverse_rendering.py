@@ -10,8 +10,8 @@ hero-wavelength reparameterization (plain per-sample gradients of
 dispersion are zero a.e.) and lives in examples/inverse_dispersion.py.
 
 Run (CPU, virtual 8-device mesh):
-  PYTHONPATH= JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
-    /opt/venv/bin/python examples/inverse_rendering.py
+  JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
+    python examples/inverse_rendering.py
 """
 
 from __future__ import annotations

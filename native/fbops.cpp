@@ -1,6 +1,6 @@
 // Native framebuffer ops for spectral_tpu.
 //
-// TPU-native equivalent of the reference's C++ host image layer:
+// Host-side equivalent of the reference's C++ host image layer:
 //   - XYZ -> sRGB -> gamma -> uint8 conversion (save_to_fb,
 //     rendering/rendering.cu:140-149 + color/color.cu:15-49 +
 //     frame_buffer.cuh image_channels) for the full frame on the host,

@@ -15,7 +15,7 @@ Parametrization (identical to the reference's device indexing):
   components relative to z on uniform grids.
 
 Run (CPU, ~35 min at res 64):
-  PYTHONPATH= JAX_PLATFORMS=cpu /opt/venv/bin/python scripts/build_rgb2spec_table.py
+  JAX_PLATFORMS=cpu python scripts/build_rgb2spec_table.py
 Output: spectral_tpu/data/rgb2spec_table.npz  (data [3,N,N,N,3] f32 +
 scale [N] f32; ~9.4 MB at N=64, matching the reference blob's size).
 """

@@ -2,10 +2,9 @@
 
 Writes spectral_tpu/data/rgb2spec_fits.npz with (rgb, coeffs) rows for
 every color used by the three hard-coded scenes plus common calibration
-colors, so process startup never pays the fit compile (important under
-remote-compile TPU environments where a first jit costs minutes).
+colors, so process startup never pays the fit compile.
 
-Run: PYTHONPATH= JAX_PLATFORMS=cpu python scripts/precompute_fits.py
+Run: JAX_PLATFORMS=cpu python scripts/precompute_fits.py
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""spectral_tpu — a TPU-native differentiable spectral path tracer.
+"""spectral_tpu — a differentiable spectral path tracer in JAX.
 
 A from-scratch JAX/Pallas framework with the capabilities of the CUDA
 reference (PieSil/CUDA-spectral-ray-tracer): hero-wavelength spectral path
@@ -6,9 +6,9 @@ tracing of triangle scenes with lambertian / metallic / dielectric
 (Sellmeier-dispersive) / emissive materials, sRGB<->spectrum conversion
 through CIE XYZ, progressive chunked rendering — plus capabilities the
 reference lacks: exact autodiff through the light path (inverse rendering
-of material spectra and dispersion), multi-chip tile/sample sharding on a
-device mesh, tile checkpoint/resume, and a fused Pallas TPU megakernel
-forward path.
+of material spectra and dispersion), multi-device tile/sample sharding on
+a device mesh, tile checkpoint/resume, and a Pallas (Triton) megakernel
+forward path for GPUs.
 
 Public API:
 
@@ -20,9 +20,10 @@ Public API:
 
 import jax as _jax
 
-# TPU matmuls default to bf16 inputs; the MXU intersector's edge
-# functionals (ops/intersect.py) and the 3x3 color transforms need full
-# f32 — bf16 misclassifies grazing interior tests and visibly darkens
+# f32 contractions may otherwise run in reduced precision (TF32 on GPU
+# tensor cores). The intersector's 3-wide edge functionals
+# (ops/intersect.py) and the 3x3 color transforms need full f32: reduced
+# precision misclassifies grazing interior tests and visibly darkens
 # renders (hits silently dropped). Rendering is f32-semantics throughout.
 _jax.config.update("jax_default_matmul_precision", "highest")
 

@@ -34,12 +34,13 @@ class RenderParams:
     do_log: bool = False
     show: bool = True
     save: bool = False
-    # extension beyond the reference CLI: compute path selection.
-    # auto = fused pallas megakernel on TPU, XLA wavefront elsewhere.
+    # extension beyond the reference CLI: compute path selection
+    # (runtime/render_manager.py::select_impl). auto = the Pallas
+    # megakernel on a GPU for dense scenes, the XLA wavefront otherwise.
     impl: str = "auto"
     # profiler trace output dir (the reference brackets its render loop with
     # cudaProfilerStart/Stop for Nsight, main.cpp:9,28,57; here it is a
-    # jax.profiler trace for xprof/tensorboard). Empty = off.
+    # jax.profiler trace). Empty = off.
     profile_dir: str = ""
 
     @property

@@ -1,14 +1,6 @@
-from .fast import (
-    render_chunk_diff,
-    render_chunk_diff_fused,
-    render_chunk_diff_fused_accum,
-)
 from .geometry import derive_tri_arrays, scene_with_vertices
 
 __all__ = [
     "derive_tri_arrays",
-    "render_chunk_diff",
-    "render_chunk_diff_fused",
-    "render_chunk_diff_fused_accum",
     "scene_with_vertices",
 ]

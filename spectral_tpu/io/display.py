@@ -1,7 +1,7 @@
 """Live progressive display: ANSI truecolor terminal rendering.
 
 The reference pops a CImg window and refreshes it per chunk
-(image/image.cpp:3-18, main.cpp:20-40). TPU pods are headless, so the
+(image/image.cpp:3-18, main.cpp:20-40). Render hosts are headless, so the
 live-display parity is a terminal renderer: each pixel pair becomes a
 U+2580 upper-half-block with truecolor fore/background, refreshed in place
 with cursor-home escapes. Falls back to doing nothing when stdout is not a

@@ -2,7 +2,7 @@
 
 The reference writes BMP via CImg (io/save_image.cpp:8-20 -> CImg save_bmp)
 into a ``renders/`` directory, plus a legacy stdout PPM writer
-(io/io.cuh:10-23). The TPU build keeps byte-identical simple formats with no
+(io/io.cuh:10-23). This build keeps byte-identical simple formats with no
 third-party image dependency: BMP (24-bit bottom-up BGR, what CImg emits),
 binary PPM (P6), and PNG (stdlib zlib, RGB8). A native C++ encoder for the
 hot display path lives in runtime/native (BMP/PPM fast paths); this module

@@ -3,9 +3,9 @@
 Reference flow (main.cpp:135-167): parse args -> init device constants ->
 scene -> render loop (progressive display) -> save/log. Device-constant
 upload is implicit here (tables are jnp arrays captured by jit), display is
-a progressive PNG preview (no GUI in the TPU pod environment; the CImg
-window main.cpp:20-40 maps to a refreshing preview file), save writes a BMP
-under ``renders/`` exactly like io/save_image.cpp.
+a progressive PNG preview (the CImg window main.cpp:20-40 maps to an
+in-terminal view plus a refreshing preview file), save writes a BMP under
+``renders/`` exactly like io/save_image.cpp.
 
 Usage: python -m spectral_tpu.main -s 0 -xr 600 -ns 500 -bl 10 --save --no-show
 """
@@ -21,12 +21,14 @@ from .config import parse_args
 from .io.image import save_image, save_render
 from .models.scenes import SCENE_NAMES, build_scene, scene_camera
 from .runtime.render_manager import RenderManager
+from .utils.compile_cache import configure_compile_cache
 from .utils.logging import reset_log_context
 from .render.wavefront import xyz_to_image
 
 
 def main(argv: list[str] | None = None) -> int:
     p = parse_args(sys.argv[1:] if argv is None else argv)
+    configure_compile_cache()
     log = reset_log_context(p.title, p.log_subdir)
 
     log.add_entry("title", p.title)

@@ -3,7 +3,7 @@
 The reference builds its worlds on-device with a single CUDA thread running
 composite-primitive constructors that ``new`` triangles into a pointer array
 (reference: scene/scene.cu:9-54, primitives/*.cuh). Scene construction is a
-one-time O(tens-of-triangles) task, so the TPU-native design does it on the
+one-time O(tens-of-triangles) task, so this design does it on the
 host in numpy with the SAME construction order and vertex math, producing a
 flat SoA triangle soup that uploads once as jnp arrays.
 
@@ -18,8 +18,8 @@ Composite factories (citations into /root/reference):
 Derived per-triangle quantities (normal, D, axis-aligned-plane tag, winding,
 edge functionals) mirror tri::init (primitives/tri.cu:47-84) and additionally
 precompute the *affine edge functionals* that turn the interior test into
-three dot products -- the formulation that lets the TPU intersector run as
-batched matmuls on the MXU (see ops/intersect.py).
+three dot products -- the formulation that lets the intersector run as
+batched contractions (see ops/intersect.py).
 """
 
 from __future__ import annotations
@@ -191,7 +191,7 @@ def rotation_matrix(theta: float, axis: str) -> np.ndarray:
 
 def finalize(soup: TriSoup) -> dict[str, np.ndarray]:
     """Derive per-triangle quantities (tri::init, reference tri.cu:47-84)
-    plus the MXU-friendly affine edge functionals.
+    plus the affine edge functionals.
 
     Returns float32 SoA arrays:
       v0, v1, v2    [T, 3]   vertices

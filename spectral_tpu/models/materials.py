@@ -4,7 +4,7 @@ The reference's ``material`` is a POD struct with a type tag, rgb color,
 fuzz, emission power, a precomputed 95-sample spectral distribution, and
 Sellmeier B/C coefficients (reference: materials/material.cuh:140-149;
 factories at material.cuh:100-117; SPD precompute compute_spectral_distr at
-material.cuh:71-84). The TPU-native version is a struct-of-arrays pytree in
+material.cuh:71-84). Here it is a struct-of-arrays pytree in
 which the *learnable* quantities (sigmoid-poly coefficients, emission power,
 fuzz, Sellmeier B/C) are leaves, so ``jax.grad`` flows through the renderer
 into them, and the SPD table is a pure function of those leaves.

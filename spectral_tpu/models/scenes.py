@@ -5,9 +5,10 @@ TRIS=2. Geometry and material tables replicate scene/scene.cu:73-226
 construction-for-construction; cameras replicate scene.cu:259-320.
 
 A ``Scene`` is a frozen pytree of SoA device arrays: triangle soup (with the
-precomputed MXU edge functionals), the material table, the background SPD,
-and the LBVH arrays. It is replicated across the device mesh (HBM-resident,
-per BASELINE north star) -- rendering shards pixels, never the scene.
+precomputed edge functionals), the material table, the background SPD,
+and the LBVH arrays. It is replicated across the device mesh (resident in
+device memory, per BASELINE north star) -- rendering shards pixels, never
+the scene.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..ops.rgb2spec import srgb_to_illuminance_spectrum
+from ..utils.constants import DENSE_CUTOFF
 from .camera import Camera, make_camera
 from .geometry import TriSoup, finalize
 from .materials import MaterialBuilder, Materials
@@ -53,7 +55,8 @@ class Scene:
     materials: Materials
     background_spd: jnp.ndarray  # [95]
     # Optional LBVH (ops/bvh.py). None -> dense intersection (the fast path
-    # at reference scene scale); attach with ``with_bvh`` for large scenes.
+    # at reference scene scale); the render entry points attach one above
+    # DENSE_CUTOFF triangles (``auto_bvh``).
     bvh: object = None
 
     @property
@@ -223,13 +226,13 @@ def build_tri_field(
 
     The reference has no >42-tri scene, but its BVH exists precisely for
     this scale (bvh/bvh.cu:206-309 builds for arbitrary N); this scene
-    exercises the TPU in-kernel BVH sweep (ops/pallas/render_kernel.py
-    pack_scene_bvh) and the LBVH XLA path at the sizes they were built
-    for. Deterministic in ``seed``.
+    exercises the LBVH path at the sizes it was built for. It carries no
+    BVH itself: the render entry points attach one (``auto_bvh``).
+    Deterministic in ``seed``.
 
     ``glass``: replace every 4th box with a BK7 dielectric (material row
     ``FIELD_GLASS_MAT``) so large-scene inverse dispersion has a
-    BVH-routed target (round-5 fused-sorted Sellmeier gradients)."""
+    BVH-routed target."""
     import numpy as _np
 
     rng = _np.random.RandomState(seed)
@@ -279,3 +282,14 @@ def with_bvh(scene: Scene, leaf_size: int = 8) -> Scene:
 
     bvh = build_lbvh(scene.bbox_min, scene.bbox_max, leaf_size)
     return dataclasses.replace(scene, bvh=bvh)
+
+
+def auto_bvh(scene):
+    """The one dense-or-BVH rule: a scene above DENSE_CUTOFF triangles that
+    carries no BVH gets an LBVH attached; any other scene is returned as
+    it is. Dense intersection of a large scene would materialise [N, T]
+    candidate tensors (about 21 GB for a 10k-triangle field at 512x256x4
+    rays). Works eagerly and under jit (the build is plain jnp)."""
+    if getattr(scene, "bvh", None) is None and scene.v0.shape[0] > DENSE_CUTOFF:
+        return with_bvh(scene)
+    return scene

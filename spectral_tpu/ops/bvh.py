@@ -3,20 +3,20 @@
 The reference builds a pointer BVH with ONE CUDA thread doing iterative
 median-splits with an in-kernel quicksort (bvh/bvh.cu:206-309) and traverses
 it with a 64-deep local stack per thread (bvh.cu:99-166, after Karras's
-"Thinking Parallel" articles, README.md:15). The TPU-native redesign:
+"Thinking Parallel" articles, README.md:15). The data-parallel redesign:
 
 * Build: 30-bit Morton codes over triangle-bbox centroids, one
-  ``jax.lax.sort`` (radix on TPU), then Karras 2012's binary-radix-tree
+  ``jax.lax.sort``, then Karras 2012's binary-radix-tree
   construction evaluated as a *closed-form vectorized op per internal node*
   (no sequential splitting at all). Leaves are CLUSTERS of ``leaf_size``
   consecutive Morton-ordered triangles, so a leaf visit is a dense
-  [active_rays, leaf_size] block test that reuses the MXU intersector.
+  [active_rays, leaf_size] block test.
   Internal bboxes are fitted with a bottom-up ready-flag sweep
   (`lax.while_loop`), replacing the reference's post-order stack pass
   (bvh.cu:311-346).
 
 * Traversal: all rays advance in lockstep through a masked
-  ``lax.while_loop`` with a per-ray [STACK_DEPTH] stack in registers/VMEM --
+  ``lax.while_loop`` with a per-ray [STACK_DEPTH] stack in device memory --
   the vectorized equivalent of the reference's per-thread stack walk, with
   nearest-hit tracking (t_best narrows as hits are found, like bvh.cu's
   closest-so-far max).
@@ -24,7 +24,7 @@ it with a 64-deep local stack per thread (bvh.cu:99-166, after Karras's
 For reference-scale scenes (<= ~128 tris after padding) the dense
 ``ops.intersect.nearest_hit`` path is faster than any traversal; the LBVH
 exists for the large-scene capability and kicks in automatically above
-``DENSE_CUTOFF`` (see render pipeline).
+``DENSE_CUTOFF`` (models/scenes.py::auto_bvh).
 """
 
 from __future__ import annotations
@@ -38,6 +38,7 @@ import numpy as np
 from .intersect import BIG, _gather_record, intersect_block
 
 STACK_DEPTH = 64  # matches the reference's MAX_DEPTH (bvh.cuh:12)
+SLAB_FAR_SCALE = 1.0 + 2.0 * (3 * 2.0**-24) / (1 - 3 * 2.0**-24)
 
 
 @jax.tree_util.register_dataclass
@@ -101,6 +102,10 @@ def build_lbvh(bbox_min: jnp.ndarray, bbox_max: jnp.ndarray, leaf_size: int = 8)
     Fully vectorized: sort + per-node closed-form range/split computation.
     T is padded to a multiple of leaf_size by repeating the last triangle.
     """
+    # the tree is a discrete acceleration structure: no gradient flows
+    # through it (reverse-mode AD cannot pass the bottom-up while_loop)
+    bbox_min = jax.lax.stop_gradient(bbox_min)
+    bbox_max = jax.lax.stop_gradient(bbox_max)
     t = bbox_min.shape[0]
     centroids = 0.5 * (bbox_min + bbox_max)
     lo = jnp.min(bbox_min, axis=0)
@@ -236,9 +241,19 @@ def nearest_hit_bvh(o: jnp.ndarray, d: jnp.ndarray, scene, bvh: LBVH):
     Vectorized equivalent of bvh::hit (reference bvh.cu:99-166): every ray
     keeps a [STACK_DEPTH] node stack; each while-loop step pops one node per
     ray, AABB-tests it against the narrowing [0, t_best] interval, and either
-    pushes children or runs the MXU block intersector on the leaf's
+    pushes children or runs the block intersector on the leaf's
     ``leaf_size`` triangles.
+
+    The walk only selects the hit triangle, so it runs on
+    gradient-stopped rays and geometry; the returned record is recomputed
+    differentiably from the selected index (``_gather_record``), which is
+    the same policy as the dense path's detached argmin.
     """
+    o_full, d_full = o, d
+    o, d = jax.lax.stop_gradient(o), jax.lax.stop_gradient(d)
+    tri_normal, tri_d, tri_eg, tri_ec = jax.lax.stop_gradient(
+        (scene.normal, scene.d, scene.edge_g, scene.edge_c)
+    )
     n = o.shape[0]
     n_leaves = bvh.leaf_start.shape[0]
     n_int = n_leaves - 1
@@ -254,13 +269,13 @@ def nearest_hit_bvh(o: jnp.ndarray, d: jnp.ndarray, scene, bvh: LBVH):
         # single leaf: dense test of everything
         tri_idx = leaf_tris[0]
         t_all, valid = intersect_block(
-            o, d, scene.normal[tri_idx], scene.d[tri_idx], scene.edge_g[tri_idx], scene.edge_c[tri_idx]
+            o, d, tri_normal[tri_idx], tri_d[tri_idx], tri_eg[tri_idx], tri_ec[tri_idx]
         )
         t_masked = jnp.where(valid, t_all, BIG)
         j = jnp.argmin(t_masked, axis=-1)
         hit = jnp.take_along_axis(valid, j[:, None], 1)[:, 0]
         idx = tri_idx[j]
-        return _gather_record(o, d, scene, idx.astype(jnp.int32), hit)
+        return _gather_record(o_full, d_full, scene, idx.astype(jnp.int32), hit)
 
     def aabb_one(node_id, t_best):
         """AABB slab test of one node id per ray against [0, t_best]."""
@@ -271,8 +286,12 @@ def nearest_hit_bvh(o: jnp.ndarray, d: jnp.ndarray, scene, bvh: LBVH):
         t0 = jnp.minimum(lo, hi)
         t1 = jnp.maximum(lo, hi)
         near = jnp.maximum(jnp.max(t0, axis=-1), 0.0)
-        far = jnp.minimum(jnp.min(t1, axis=-1), t_best)
-        return near < far  # aabb.cu:34 strict max<=min -> miss
+        # conservative exit (Ize 2013, robust BVH traversal): scale the far
+        # distance by 1 + 2*gamma(3) and accept touching slabs, so planar
+        # leaves (axis-aligned walls, whose AABBs are one ulp thick) are
+        # never culled by rounding; the leaf test decides the hit
+        far = jnp.minimum(jnp.min(t1, axis=-1) * SLAB_FAR_SCALE, t_best)
+        return near <= far
 
     # state: stack [N, S], sp [N], t_best [N], best_idx [N], best_valid [N]
     stack = jnp.zeros((n, STACK_DEPTH), jnp.int32)
@@ -299,10 +318,10 @@ def nearest_hit_bvh(o: jnp.ndarray, d: jnp.ndarray, scene, bvh: LBVH):
         leaf_id = jnp.clip(node - n_int, 0, n_leaves - 1)
         tri_idx = leaf_tris[leaf_id]  # [N, ls]
         # gather per-ray candidate tri data
-        vn = scene.normal[tri_idx]  # [N, ls, 3]
-        vd = scene.d[tri_idx]  # [N, ls]
-        eg = scene.edge_g[tri_idx]  # [N, ls, 3, 3]
-        ec = scene.edge_c[tri_idx]  # [N, ls, 3]
+        vn = tri_normal[tri_idx]  # [N, ls, 3]
+        vd = tri_d[tri_idx]  # [N, ls]
+        eg = tri_eg[tri_idx]  # [N, ls, 3, 3]
+        ec = tri_ec[tri_idx]  # [N, ls, 3]
         no = jnp.einsum("nc,nlc->nl", o, vn)
         nd = jnp.einsum("nc,nlc->nl", d, vn)
         t_all = (vd - no) / nd
@@ -344,4 +363,4 @@ def nearest_hit_bvh(o: jnp.ndarray, d: jnp.ndarray, scene, bvh: LBVH):
 
     state = (stack, sp, t_best, best_idx, best_valid)
     _, _, t_best, best_idx, best_valid = jax.lax.while_loop(cond, body, state)
-    return _gather_record(o, d, scene, best_idx, best_valid)
+    return _gather_record(o_full, d_full, scene, best_idx, best_valid)

@@ -1,6 +1,6 @@
 """sRGB <-> CIE XYZ conversion and gamma handling, batched and differentiable.
 
-TPU-native equivalents of the reference's per-pixel scalar color pipeline
+Batched equivalents of the reference's per-pixel scalar color pipeline
 (reference: color/color.cu):
 
 - ``srgb_gamma_expand`` / ``srgb_gamma_compress`` <- color.cu:8-22

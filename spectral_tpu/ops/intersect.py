@@ -1,10 +1,10 @@
 """Ray-triangle intersection as batched matrix multiplies.
 
-TPU-first redesign of the reference's scalar hit pipeline (tri::hit,
+Data-parallel redesign of the reference's scalar hit pipeline (tri::hit,
 primitives/tri.cu:3-45; bvh traversal bvh/bvh.cu:99-166). Instead of one
 thread walking one ray through branchy plane/interior tests, we express the
 whole test as affine functionals of the ray, evaluated for a [N_rays] x
-[T_tris] block with five [N,3] @ [3,T] GEMMs that run on the MXU:
+[T_tris] block with five [N,3] @ [3,T] contractions:
 
   plane:    t(r, j)   = (D_j - n_j . o_r) / (n_j . d_r)       (tri.cu:12-25)
   interior: a_k(r, j) = (G_jk . o_r + c_jk) + t * (G_jk . d_r) (tri.cu:121-128)
@@ -12,12 +12,11 @@ whole test as affine functionals of the ray, evaluated for a [N_rays] x
 where G/c are the per-edge affine functionals precomputed at scene build
 (models/geometry.py finalize), with the winding sign folded in so the
 interior test is uniformly ``a_k >= 0``. The nearest hit is a masked argmin
-over the T axis -- a VPU reduction. No per-ray control flow, no divergence.
+over the T axis. No per-ray control flow, no divergence.
 
-This dense path IS the fast path for reference-scale scenes (20-64 tris):
-at T <= 128 the whole [N, T] tile fits a single MXU pass and beats any
-traversal. For large scenes ops/bvh.py culls to leaf clusters and reuses
-``intersect_block`` on the gathered candidates.
+This dense path serves reference-scale scenes (20-64 tris, at most
+DENSE_CUTOFF). For large scenes ops/bvh.py culls to leaf clusters and
+reuses the same tests on the gathered candidates.
 
 Gradient policy (SURVEY section 7.5): the *selection* (argmin index, hit
 mask) is discrete and detached; the selected hit's t, point and normal are

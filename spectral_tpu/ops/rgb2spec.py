@@ -5,7 +5,7 @@ The reference uses pbrt-v4's precomputed [3][64][64][64][3] coefficient table
 utils/srgb_to_spectrum.cuh:17-19; the 9.4 MB data blob is stripped from the
 snapshot). The representation is: SPD(lambda) = sigmoid(c0*l^2 + c1*l + c2).
 
-TPU-native redesign: instead of a trilinearly-interpolated lookup table we
+Redesign: instead of a trilinearly-interpolated lookup table we
 *fit the three coefficients directly per color* with a batched, jit-compiled
 Gauss-Newton solve on the same objective pbrt optimizes (CIE-Lab round-trip
 error under D65). Scenes have O(10) distinct colors, so the fit is a
@@ -223,7 +223,7 @@ _disk_table: tuple[np.ndarray, np.ndarray] | None | bool = None  # lazy
 def _load_disk_table():
     """Precomputed (rgb, coeffs) rows for the stock scene palettes
     (scripts/precompute_fits.py) — avoids paying the fit jit on every
-    process start (notably under remote-compile TPU environments)."""
+    process start."""
     global _disk_table
     if _disk_table is None:
         import os

@@ -3,7 +3,7 @@
 The reference prototyped exactly this formulation in
 material::unified_scatter (materials/material.cu:138-183): compute the
 lambertian / metallic / dielectric scatter directions for EVERY ray, then
-blend with one-hot material weights. That is the natural SIMD/TPU program,
+blend with one-hot material weights. That is the natural SIMD program,
 so it is the ONLY formulation here -- the branchy scatter()
 (material.cu:56-100) exists in the reference purely for warp-divergence
 experiments and computes the same distribution.
@@ -95,7 +95,7 @@ def _interp_rows(spd_rows: jnp.ndarray, lam: jnp.ndarray) -> jnp.ndarray:
 
     Same clamped lerp as ray::mul_spectrum -> spectrum_interp
     (ray.cuh:60-69, spectrum.cu:11-22), via the select-chain formulation
-    (TPU gather is ~50x slower — ops/spectrum.py::_select_lerp)."""
+    (ops/spectrum.py::_select_lerp)."""
     from ..utils.constants import LAMBDA_MAX, LAMBDA_MIN
     from .spectrum import _select_lerp
 

@@ -1,6 +1,6 @@
 """Batched spectral sampling primitives.
 
-TPU-native (vectorized, differentiable) equivalents of the reference's
+Vectorized, differentiable equivalents of the reference's
 per-ray scalar loops:
 
 - ``spectrum_interp``  <- reference spectrum/spectrum.cu:11-22
@@ -28,10 +28,10 @@ from ..utils.constants import (
 
 
 def _select_lerp(lo_of, hi_of, cell, w, n):
-    """Unrolled select-chain lerp: XLA's TPU gather lowering is ~50x slower
-    than a chain of vector selects for small static tables (measured 32 ms
-    vs <1 ms at 1.8M lookups from 95 cells). ``lo_of(k)``/``hi_of(k)``
-    give the table values at cell k / k+1, broadcastable to cell's shape."""
+    """Unrolled select-chain lerp over a small static table (a gather is
+    the alternative; which is faster on the GPU is open, ROADMAP S-queue).
+    ``lo_of(k)``/``hi_of(k)`` give the table values at cell k / k+1,
+    broadcastable to cell's shape."""
     lo = jnp.zeros_like(w)
     hi = jnp.zeros_like(w)
     for k in range(n - 1):

@@ -2,10 +2,10 @@ from .distributed import init_distributed, local_row_block, make_global_mesh
 from .mesh import SAMPLE_AXIS, TILE_AXIS, factor_devices, make_mesh
 from .render import (
     apply_params,
+    image_loss,
     render_image_sharded,
     render_image_sharded_pallas,
     train_step,
-    train_step_fused,
     trainable_params,
 )
 
@@ -18,9 +18,9 @@ __all__ = [
     "factor_devices",
     "make_mesh",
     "apply_params",
+    "image_loss",
     "render_image_sharded",
     "render_image_sharded_pallas",
     "train_step",
-    "train_step_fused",
     "trainable_params",
 ]

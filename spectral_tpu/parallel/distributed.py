@@ -1,33 +1,27 @@
-"""Multi-host (multi-process) entry: jax.distributed wiring + global mesh.
+"""Multi-process entry: jax.distributed wiring + global mesh.
 
-The reference is strictly single-GPU/single-process (its render_manager.cu
-chunk loop runs on one host); the TPU deployment target is an N-host pod
-slice. This module is the missing piece flagged in round 1: a real
-``jax.distributed.initialize`` entry point and a (host, chip)-aware global
-mesh, so the (tile, sample) decomposition of parallel/mesh.py spans hosts
-with the axes laid out to keep collectives on ICI:
+The reference is strictly single-GPU/single-process (its
+render_manager.cu chunk loop runs on one host). This module adds a real
+``jax.distributed.initialize`` entry point and a process-aware global
+mesh, so the (tile, sample) decomposition of parallel/mesh.py spans hosts:
 
 - the ``tile`` axis is ordered host-major: image rows shard across hosts
   first, so rendering needs ZERO inter-host traffic (each host owns a row
   block, exactly like the reference's sequential chunk loop but spatial);
-- the ``sample`` axis always lies INSIDE a host (chips on ICI), so the
-  per-pixel XYZ psum and the gradient all-reduce's hot inner stage ride
-  ICI; only the final cross-host gradient reduction (small parameter
-  pytree, once per step) touches DCN.
+- the ``sample`` axis always lies INSIDE a host (cards joined by NVLink),
+  so the per-pixel XYZ psum and the gradient all-reduce's inner stage stay
+  on the host; only the final cross-host gradient reduction (small
+  parameter pytree, once per step) crosses the network.
 
-Launch recipe (one process per host; TPU pods discover topology
-automatically, so plain ``initialize()`` suffices):
+Launch recipe (one process per host; nothing tells JAX of a cluster, so
+the coordinator is always explicit):
 
-    # host 0..N-1, e.g. via gcloud compute tpus tpu-vm ssh --worker=all
-    python -m spectral_tpu.train --distributed ...
-
-    # CPU/GPU clusters need explicit coordination:
     SPECTRAL_COORD=host0:8476 SPECTRAL_NPROC=4 SPECTRAL_PROC_ID=$i \
-        python -m spectral_tpu.train --distributed ...
+        python your_driver.py
 
 Verified multi-process on CPU by tests/test_distributed.py (two local
-processes, loopback coordinator), and multi-chip by dryrun_multichip's
-virtual 8-device mesh (single process) — a real pod run composes the two.
+processes, loopback coordinator), and multi-device by dryrun_multichip's
+virtual 8-device mesh (single process).
 """
 
 from __future__ import annotations
@@ -50,9 +44,9 @@ def init_distributed(
     when running distributed (process_count > 1 after init).
 
     Arguments default from SPECTRAL_COORD / SPECTRAL_NPROC /
-    SPECTRAL_PROC_ID, falling back to jax's own autodetection (TPU pods
-    need no explicit configuration). Safe to call when single-process:
-    with no coordinator configured anywhere this is a no-op.
+    SPECTRAL_PROC_ID. Safe to call when single-process: with no
+    coordinator configured anywhere this is a no-op, and so is a second
+    call after initialization.
     """
     coordinator_address = coordinator_address or os.environ.get("SPECTRAL_COORD")
     if num_processes is None and os.environ.get("SPECTRAL_NPROC"):
@@ -60,30 +54,20 @@ def init_distributed(
     if process_id is None and os.environ.get("SPECTRAL_PROC_ID"):
         process_id = int(os.environ["SPECTRAL_PROC_ID"])
 
-    already = getattr(
-        jax._src.distributed.global_state, "client", None  # noqa: SLF001
-    ) is not None
-    if not already:
-        if coordinator_address is not None:
-            # NOTE: must run before anything touches the XLA backend
-            # (jax.devices / default_backend / any computation)
-            jax.distributed.initialize(
-                coordinator_address=coordinator_address,
-                num_processes=num_processes,
-                process_id=process_id,
-            )
-        elif jax.default_backend() == "tpu":
-            # TPU pods autodetect topology; no explicit coordination needed
-            jax.distributed.initialize()
-        else:
-            # nothing to coordinate against on CPU/GPU without an address
-            return jax.process_count() > 1
+    if coordinator_address is not None and not jax.distributed.is_initialized():
+        # NOTE: must run before anything touches the XLA backend
+        # (jax.devices / default_backend / any computation)
+        jax.distributed.initialize(
+            coordinator_address=coordinator_address,
+            num_processes=num_processes,
+            process_id=process_id,
+        )
     return jax.process_count() > 1
 
 
 def make_global_mesh(devices=None) -> Mesh:
     """A (tile, sample) mesh over ALL processes' devices, host-major on
-    ``tile`` (see module docstring for the ICI/DCN layout rationale).
+    ``tile`` (see module docstring for the layout rationale).
 
     Single-process this reduces exactly to parallel.mesh.make_mesh's
     factoring, so every consumer can use it unconditionally.
@@ -94,11 +78,12 @@ def make_global_mesh(devices=None) -> Mesh:
     n_proc = jax.process_count()
     local = n // max(n_proc, 1)
     if n_proc > 1:
-        # sample extent from the LOCAL chip count so the psum stays on ICI
+        # sample extent from the LOCAL device count so the psum stays
+        # inside a host
         _, ns = factor_devices(local)
         nt = n // ns
         # devices are process-major already; reshape keeps each host's
-        # chips contiguous along the trailing (sample) axis
+        # devices contiguous along the trailing (sample) axis
         arr = np.asarray(devices).reshape(nt, ns)
     else:
         nt, ns = factor_devices(n)

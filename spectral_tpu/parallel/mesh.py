@@ -1,19 +1,20 @@
 """Device-mesh construction for tile/sample-sharded rendering.
 
 The reference is single-GPU: its only decomposition is the sequential
-host-driven chunk loop (reference rendering/render_manager.cu:3-66). The
-TPU-native scaling story replaces that loop with a static 2D
-``jax.sharding.Mesh``:
+host-driven chunk loop (reference rendering/render_manager.cu:3-66). Here
+that loop becomes a static 2D ``jax.sharding.Mesh``:
 
 - axis ``tile``   — image rows sharded across devices (the data-parallel
   pixel axis; what the chunk loop serialized, we parallelize).
 - axis ``sample`` — samples-per-pixel sharded across devices (the
   embarrassingly-parallel Monte Carlo axis; partial XYZ sums are
-  ``psum``-reduced over ICI).
+  ``psum``-reduced across devices).
 
-Scene + BVH + materials are replicated in HBM (BASELINE north star); no
-cross-device traffic happens during tracing — only the final XYZ psum on
-the sample axis and the gradient psum on both axes ride ICI.
+Scene + BVH + materials are replicated in device memory (BASELINE north
+star); no cross-device traffic happens during tracing — only the final XYZ
+psum on the sample axis and the gradient psum on both axes. Every card of
+a host reaches every other over NVLink at the same rate, so the mesh shape
+follows the algorithm alone: four cards make a (2, 2) mesh.
 """
 
 from __future__ import annotations

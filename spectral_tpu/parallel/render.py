@@ -1,39 +1,40 @@
 """Mesh-sharded rendering + inverse-rendering train step.
 
-This is the multi-chip replacement for the reference's sequential chunk loop
+This is the multi-device replacement for the reference's sequential chunk loop
 (reference rendering/render_manager.cu:3-66 ``step`` + the producer/consumer
 double buffer render_manager.cuh:68-181): the image's row blocks become
 shards on the ``tile`` mesh axis and the spp axis is sharded over ``sample``,
 with one ``psum`` on the sample axis to merge partial Monte Carlo sums.
 
-Everything is expressed with ``jax.shard_map`` over a 2D Mesh so XLA lays
-the collectives on ICI; the same code runs on a virtual CPU mesh in tests
-(SURVEY.md section 4 item 4).
+Everything is expressed with ``jax.shard_map`` over a 2D Mesh, so XLA
+hands the collectives to NCCL on GPUs; the same code runs on a virtual CPU
+mesh in tests (SURVEY.md section 4 item 4).
 
 Gradients: ``render_image_sharded`` is differentiable; the shard_map
 transpose turns the forward psum into the gradient all-reduce, which is
-exactly the "scene-parameter gradients psum-reduced over ICI" design from
-the BASELINE north star.
+exactly the "scene-parameter gradients psum-reduced across devices"
+design from the BASELINE north star.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import os
 from functools import partial
 
 import jax
 import jax.numpy as jnp
-from jax.sharding import NamedSharding, PartitionSpec as P
-
-try:  # jax >= 0.4.35 exposes shard_map at top level
-    from jax import shard_map as _shard_map
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map as _shard_map
+from jax.sharding import PartitionSpec as P
 
 from ..models.camera import Camera
 from ..models.materials import tabulate
+from ..ops.pallas.render_kernel import (
+    BLOCK,
+    camera_vector,
+    pack_scene,
+    render_rays_pallas,
+)
 from ..render.wavefront import render_tile_xyz
+from ..utils.constants import DENSE_CUTOFF
 from ..utils.prng import fold
 from .mesh import SAMPLE_AXIS, TILE_AXIS
 
@@ -88,7 +89,7 @@ def render_image_sharded(
     # check_vma=False: the bounce-scan carry mixes axis-varying ray data with
     # invariant init constants, which the varying-manual-axes checker rejects;
     # all communication here is the one explicit psum above.
-    fn = _shard_map(
+    fn = jax.shard_map(
         shard_fn,
         mesh=mesh,
         in_specs=(P(), P(), P(), P(), P()),
@@ -105,36 +106,22 @@ def render_image_sharded_pallas(
     mesh,
     samples_per_pixel: int,
     bounce_limit: int,
-    ray_tile: int = 1024,
-    interpret=False,
+    block: int = BLOCK,
+    interpret: bool = False,
 ) -> jnp.ndarray:
-    """Full-image accumulated XYZ [H, W, 3] with the fused Pallas megakernel
-    per (tile, sample) shard — the multi-chip production forward path.
+    """Full-image accumulated XYZ [H, W, 3] with the megakernel
+    (ops/pallas/render_kernel.py) on every (tile, sample) shard.
 
-    Row blocks ride the ``tile`` axis, spp shards ride ``sample`` with one
-    psum; inside each shard the pallas kernel owns its rays end-to-end, so
-    the only HBM/ICI traffic is the final XYZ.
-
-    Scene dispatch mirrors the single-chip chunk renderer
-    (pack_scene_auto): dense scenes run the megakernel; multi-leaf BVH
-    scenes run the SORTED per-bounce scheduler (wavefront_kernel.py)
-    with per-shard threefry uniform planes — rays shuffle between
-    kernel tiles every bounce, so each shard generates its own
-    [local_spp, R, n] planes from fold_in(seed, shard_index)
-    (deterministic, backend-portable; exact-equality test against a
-    hand-assembled per-shard reference in tests/test_parallel.py).
-    BVH_SCHED=mega forces the megakernel BVH sweep per shard.
+    Same decomposition as ``render_image_sharded``: row blocks ride
+    ``tile``, spp shards ride ``sample`` with one psum. Each shard hashes
+    its own seed, so every shard draws its own samples. Dense scenes only,
+    like the kernel itself.
     """
-    from ..ops.pallas.render_kernel import (
-        camera_vector,
-        pack_scene_auto,
-        render_rays_pallas,
-    )
-    from ..ops.pallas.wavefront_kernel import (
-        n_uniforms,
-        render_rays_wavefront,
-    )
-
+    if scene.num_tris > DENSE_CUTOFF:
+        raise ValueError(
+            f"{scene.num_tris} triangles > DENSE_CUTOFF={DENSE_CUTOFF}: "
+            "use render_image_sharded (XLA LBVH path)"
+        )
     h, w = cam.image_height, cam.image_width
     n_tile = mesh.shape[TILE_AXIS]
     n_samp = mesh.shape[SAMPLE_AXIS]
@@ -146,80 +133,35 @@ def render_image_sharded_pallas(
     rows = h // n_tile
     local_spp = samples_per_pixel // n_samp
     n_local = rows * w
-    pad = (-n_local) % ray_tile
+    pad = (-n_local) % block
+    packed = (camera_vector(cam),) + pack_scene(scene)
 
-    cam_vec = camera_vector(cam)
-    (
-        tri_pack, mat_pack, tables, leaf_pack, c_pack, leaf_size,
-    ) = pack_scene_auto(scene, cam_vec)
-    use_bvh = leaf_pack is not None
-    use_sorted = (
-        use_bvh
-        and c_pack is not None
-        and leaf_pack.shape[0] > 1
-        and os.environ.get("BVH_SCHED", "sorted") == "sorted"
-    )
-
-    def shard_fn(cam_vec, tri_pack, mat_pack, tables, *bvh):
-        lp, cp = bvh if use_bvh else (None, None)
+    def shard_fn(cam_vec, tri_pack, mat_pack, tables):
         ti = jax.lax.axis_index(TILE_AXIS)
         si = jax.lax.axis_index(SAMPLE_AXIS)
-        y0 = ti * rows
         ys, xs = jnp.meshgrid(
-            jnp.arange(rows, dtype=jnp.int32),
+            jnp.arange(rows, dtype=jnp.int32) + ti * rows,
             jnp.arange(w, dtype=jnp.int32),
             indexing="ij",
         )
-        px = jnp.concatenate([xs.ravel(), jnp.zeros((pad,), jnp.int32)])
-        py = jnp.concatenate([(ys + y0).ravel(), jnp.zeros((pad,), jnp.int32)])
-        shard_seed = seed + (ti * n_samp + si) * 7919999
-        if use_sorted:
-            key = jax.random.fold_in(
-                jax.random.PRNGKey(seed), ti * n_samp + si
-            )
-            rand = jax.random.uniform(
-                key,
-                (local_spp, n_uniforms(bounce_limit), n_local + pad),
-                jnp.float32,
-            )
-            xyz = render_rays_wavefront(
-                cam_vec.astype(jnp.float32),
-                tri_pack, mat_pack, tables,
-                px.astype(jnp.float32), py.astype(jnp.float32),
-                rand, local_spp, bounce_limit,
-                lp, cp, ray_tile, interpret,
-            )
-        elif use_bvh:
-            xyz = render_rays_pallas(
-                cam_vec.astype(jnp.float32),
-                shard_seed.astype(jnp.int32),
-                tri_pack, mat_pack, tables,
-                px.astype(jnp.float32), py.astype(jnp.float32),
-                local_spp, bounce_limit, ray_tile, interpret,
-                leaf_pack=lp, leaf_size=leaf_size, c_pack=cp,
-            )
-        else:
-            xyz = render_rays_pallas(
-                cam_vec.astype(jnp.float32),
-                shard_seed.astype(jnp.int32),
-                tri_pack, mat_pack, tables,
-                px.astype(jnp.float32), py.astype(jnp.float32),
-                local_spp, bounce_limit, ray_tile, interpret,
-            )
+        px = jnp.pad(xs.ravel(), (0, pad)).astype(jnp.float32)
+        py = jnp.pad(ys.ravel(), (0, pad)).astype(jnp.float32)
+        shard_seed = (seed + (ti * n_samp + si) * 7919999) & 0x7FFFFFFF
+        xyz = render_rays_pallas(
+            cam_vec, shard_seed, tri_pack, mat_pack, tables, px, py,
+            local_spp, bounce_limit, block, interpret,
+        )
         xyz = jax.lax.psum(xyz[:n_local], SAMPLE_AXIS)
         return xyz.reshape(rows, w, 3)
 
-    scene_args = (cam_vec, tri_pack, mat_pack, tables)
-    if use_bvh:
-        scene_args = scene_args + (leaf_pack, c_pack)
-    fn = _shard_map(
+    fn = jax.shard_map(
         shard_fn,
         mesh=mesh,
-        in_specs=tuple(P() for _ in scene_args),
+        in_specs=(P(),) * len(packed),
         out_specs=P(TILE_AXIS, None, None),
         check_vma=False,
     )
-    return fn(*scene_args)
+    return fn(*packed)
 
 
 # ---------------------------------------------------------------------------
@@ -266,80 +208,40 @@ def apply_params(scene, params: dict):
     return scene
 
 
-def train_step_fused(
+def image_loss(
     params: dict,
     scene,
     cam: Camera,
     target_xyz: jnp.ndarray,
-    seed: int,
+    key: jax.Array,
     mesh,
     samples_per_pixel: int,
     bounce_limit: int,
-    lr: float = 1e-2,
-    interpret=False,
-):
-    """One SGD step of inverse rendering with the FUSED kernels per shard:
-    megakernel forward + residual-replay backward (diff/fast.py), rows
-    sharded over ``tile``, spp over ``sample``, loss/grads psum-reduced.
+    vertex_warp: bool = False,
+    fuzz_warp: bool = False,
+) -> jnp.ndarray:
+    """Mean squared error between the sharded render of the scene under
+    ``params`` and ``target_xyz`` [H, W, 3] (mean-per-sample XYZ): the
+    objective ``train_step`` descends. With a fixed ``key`` it is a
+    deterministic function of ``params`` (common random numbers), which is
+    what a finite-difference check needs."""
+    s = apply_params(scene, params)
+    vw = None
+    fz = None
+    if vertex_warp and "v0" in params:
+        from ..diff.vertex_warp import edges_from_vertices
 
-    ``params``: dict of material leaves to optimize (subset of
-    {coeffs, emission_power} — the smooth-gradient family)."""
-    h, w = cam.image_height, cam.image_width
-    n_tile = mesh.shape[TILE_AXIS]
-    n_samp = mesh.shape[SAMPLE_AXIS]
-    if h % n_tile or samples_per_pixel % n_samp:
-        raise ValueError("height/spp must divide the mesh extents")
-    rows = h // n_tile
-    local_spp = samples_per_pixel // n_samp
-    n_local = rows * w
-    pad = (-n_local) % 1024
+        vw = edges_from_vertices(params["v0"], params["v1"], params["v2"])
+    if fuzz_warp:
+        from ..diff.vertex_warp import edges_from_vertices
 
-    from ..diff.fast import render_rays_diff_fused
-
-    def shard_fn(params, scene, cam, target):
-        ti = jax.lax.axis_index(TILE_AXIS)
-        si = jax.lax.axis_index(SAMPLE_AXIS)
-        y0 = ti * rows
-        ys, xs = jnp.meshgrid(
-            jnp.arange(rows, dtype=jnp.int32),
-            jnp.arange(w, dtype=jnp.int32),
-            indexing="ij",
-        )
-        px = jnp.concatenate(
-            [xs.ravel(), jnp.zeros((pad,), jnp.int32)]
-        ).astype(jnp.float32)
-        py = jnp.concatenate(
-            [(ys + y0).ravel(), jnp.zeros((pad,), jnp.int32)]
-        ).astype(jnp.float32)
-        shard_seed = (seed + (ti * n_samp + si) * 7919993).astype(jnp.int32)
-
-        def local_loss(p):
-            mats = dataclasses.replace(scene.materials, **p)
-            xyz = render_rays_diff_fused(
-                mats, scene, cam, px, py, shard_seed,
-                local_spp, bounce_limit, interpret,
-            )
-            xyz = jax.lax.psum(xyz[:n_local], SAMPLE_AXIS)
-            img = xyz.reshape(rows, w, 3) / samples_per_pixel
-            return jnp.sum((img - target) ** 2)
-
-        loss, g = jax.value_and_grad(local_loss)(params)
-        loss = jax.lax.psum(loss, TILE_AXIS) / (h * w * 3)
-        g = jax.tree_util.tree_map(
-            lambda x: jax.lax.psum(jax.lax.psum(x, TILE_AXIS), SAMPLE_AXIS), g
-        )
-        return loss, g
-
-    fn = _shard_map(
-        shard_fn,
-        mesh=mesh,
-        in_specs=(P(), P(), P(), P(TILE_AXIS, None, None)),
-        out_specs=(P(), P()),
-        check_vma=False,
+        fz = edges_from_vertices(s.v0, s.v1, s.v2)
+    xyz = render_image_sharded(
+        s, cam, key, mesh, samples_per_pixel, bounce_limit,
+        vertex_warp=vw, fuzz_warp=fz,
     )
-    loss, grads = fn(params, scene, cam, target_xyz)
-    new_params = jax.tree_util.tree_map(lambda p, g: p - lr * g, params, grads)
-    return new_params, loss
+    img = xyz / float(samples_per_pixel)
+    return jnp.mean((img - target_xyz) ** 2)
 
 
 @partial(
@@ -365,32 +267,15 @@ def train_step(
     """One SGD step of inverse rendering on the device mesh.
 
     Renders the scene under ``params``, L2-compares against ``target_xyz``
-    [H, W, 3] (mean-per-sample XYZ), and descends the material/dispersion
-    parameters. The gradient all-reduce is the transpose of the forward
-    sample-axis psum — pure ICI traffic. With ``vertex_warp`` (and vertex
-    leaves in ``params``), the warped-area estimator makes the vertex
-    gradients exact (silhouette boundary terms included).
+    [H, W, 3] (mean-per-sample XYZ; ``image_loss``), and descends the
+    material/dispersion parameters. The gradient all-reduce is the
+    transpose of the forward sample-axis psum. With ``vertex_warp`` (and
+    vertex leaves in ``params``), the warped-area estimator makes the
+    vertex gradients exact (silhouette boundary terms included).
     """
-
-    def loss_fn(p):
-        s = apply_params(scene, p)
-        vw = None
-        fz = None
-        if vertex_warp and "v0" in p:
-            from ..diff.vertex_warp import edges_from_vertices
-
-            vw = edges_from_vertices(p["v0"], p["v1"], p["v2"])
-        if fuzz_warp:
-            from ..diff.vertex_warp import edges_from_vertices
-
-            fz = edges_from_vertices(s.v0, s.v1, s.v2)
-        xyz = render_image_sharded(
-            s, cam, key, mesh, samples_per_pixel, bounce_limit,
-            vertex_warp=vw, fuzz_warp=fz,
-        )
-        img = xyz / float(samples_per_pixel)
-        return jnp.mean((img - target_xyz) ** 2)
-
-    loss, grads = jax.value_and_grad(loss_fn)(params)
+    loss, grads = jax.value_and_grad(image_loss)(
+        params, scene, cam, target_xyz, key, mesh, samples_per_pixel,
+        bounce_limit, vertex_warp, fuzz_warp,
+    )
     new_params = jax.tree_util.tree_map(lambda p, g: p - lr * g, params, grads)
     return new_params, loss

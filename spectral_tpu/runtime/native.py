@@ -1,6 +1,6 @@
 """ctypes bindings for the native framebuffer ops (native/fbops.cpp).
 
-The runtime around the TPU compute path stays native where the reference's
+The runtime around the device compute path stays native where the reference's
 was: frame conversion (XYZ accumulator -> sRGB uint8, the reference's
 save_to_fb + image_channels path) and BMP encoding run in the C++ library
 when present, with a bit-identical numpy fallback. The library is built by

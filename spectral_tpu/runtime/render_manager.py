@@ -1,6 +1,6 @@
 """Host-side render orchestration: the chunked progressive render loop.
 
-TPU-native replacement for the reference's render_manager
+The JAX form of the reference's render_manager
 (rendering/render_manager.cu:3-66 ``step``, render_manager.cuh:68-181
 producer/consumer double buffer): JAX dispatch is already asynchronous, so
 the explicit worker thread + binary semaphores become "launch chunk k+1
@@ -25,9 +25,38 @@ import numpy as np
 
 from ..config import RenderParams
 from ..models.camera import Camera
+from ..models.scenes import auto_bvh
 from ..render.wavefront import render_chunk, xyz_to_image
+from ..utils.constants import DENSE_CUTOFF
 from ..utils.logging import LogContext
 from ..utils.prng import fold
+
+
+def select_impl(impl: str, n_tris: int, platform: str | None = None) -> str:
+    """The compute path for a render: "pallas" (the megakernel) or "xla"
+    (the wavefront reference).
+
+    ``auto`` takes the megakernel on a GPU for dense scenes (at most
+    DENSE_CUTOFF triangles) and the XLA wavefront everywhere else. An
+    explicit ``pallas`` that the platform or scene cannot run raises; it
+    never falls back to interpret mode or to XLA."""
+    platform = platform or jax.default_backend()
+    if impl == "xla":
+        return "xla"
+    if impl == "pallas":
+        if platform != "gpu":
+            raise ValueError(
+                f"--impl pallas needs a GPU; this backend is {platform!r}"
+            )
+        if n_tris > DENSE_CUTOFF:
+            raise ValueError(
+                f"--impl pallas: {n_tris} triangles > DENSE_CUTOFF="
+                f"{DENSE_CUTOFF}; the megakernel is dense-only"
+            )
+        return "pallas"
+    if impl != "auto":
+        raise ValueError(f"unknown impl {impl!r}")
+    return "pallas" if platform == "gpu" and n_tris <= DENSE_CUTOFF else "xla"
 
 
 @dataclass
@@ -53,16 +82,9 @@ class RenderManager:
         self._fb_xyz = np.zeros(
             (self.cam.image_height, self.cam.image_width, 3), np.float32
         )
-
-    def _use_pallas(self) -> bool:
-        """impl=auto -> megakernel on TPU, XLA wavefront elsewhere;
-        explicit pallas/xla forces the path."""
-        impl = getattr(self.params, "impl", "auto")
-        if impl == "xla":
-            return False
-        if impl == "pallas":
-            return True
-        return jax.default_backend() not in ("cpu",)
+        self.impl = select_impl(self.params.impl, self.scene.num_tris)
+        # build the LBVH of a large scene once, not once per chunk
+        self.scene = auto_bvh(self.scene)
 
     def chunks(self) -> Iterator[tuple[int, int, int, int]]:
         """Row-major chunk grid (render_manager.cu:56-64 offset advance).
@@ -110,15 +132,19 @@ class RenderManager:
                 os.replace(tmp, checkpoint)
 
         launched: list[ChunkResult] = []
-        use_pallas = self._use_pallas()
+        # the kernel hashes one seed per render with each pixel's
+        # coordinates; drawn before the first launch, so this host read
+        # never waits behind an in-flight chunk
+        seed = (
+            int(jax.random.randint(key, (), 0, 2**31 - 1))
+            if self.impl == "pallas"
+            else 0
+        )
 
         def launch(x0, y0, w, h) -> ChunkResult:
-            if use_pallas:
+            if self.impl == "pallas":
                 from ..ops.pallas.render_kernel import render_chunk_pallas
 
-                # mask to 31 bits: the kernel hashes the seed anyway and
-                # jnp.int32 rejects out-of-range python ints
-                seed = (1984 + (y0 * self.cam.image_width + x0) * 1000003) & 0x7FFFFFFF
                 xyz = render_chunk_pallas(
                     self.scene, self.cam, seed, x0, y0, w, h,
                     p.nsamples, p.bounce_limit,
@@ -148,6 +174,10 @@ class RenderManager:
         dt = time.perf_counter() - t0
         if self.log is not None:
             self.log.add_entry("total rendering time (seconds)", dt)
+            self.log.add_entry("compute path", self.impl)
+            self.log.add_entry(
+                "non-finite values", int(np.count_nonzero(~np.isfinite(self._fb_xyz)))
+            )
             self.log.add_entry("chunks", len(grid))
             self.log.add_entry("samples per pixel", p.nsamples)
             self.log.add_entry("bounce limit", p.bounce_limit)
@@ -161,6 +191,11 @@ class RenderManager:
         self._fb_xyz[c.y0 : c.y0 + c.height, c.x0 : c.x0 + c.width] = xyz
         if on_chunk is not None:
             on_chunk(c, self._fb_xyz)
+
+    @property
+    def xyz(self) -> np.ndarray:
+        """The accumulated XYZ framebuffer [H, W, 3] (sum over samples)."""
+        return self._fb_xyz
 
     def image(self) -> np.ndarray:
         """Current framebuffer as uint8 sRGB (save_to_fb + image_channels).

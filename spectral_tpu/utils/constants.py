@@ -1,10 +1,10 @@
 """Physical / colorimetric constants for the spectral pipeline, as JAX arrays.
 
-TPU-native equivalent of the reference's ``__constant__``-memory uploads
+The equivalent of the reference's ``__constant__``-memory uploads
 (reference: utils/cie_const.cuh:20-23, utils/color_const.cuh:17-19,
-refraction/sellmeier.cuh:15-20, utils/device_init.cuh:13-46). On TPU these
-are ordinary replicated device arrays: XLA keeps them in HBM and stages hot
-slices into VMEM automatically, so there is no explicit "upload" step.
+refraction/sellmeier.cuh:15-20, utils/device_init.cuh:13-46). Here these
+are ordinary replicated device arrays captured by jit, so there is no
+explicit "upload" step.
 """
 
 from __future__ import annotations
@@ -24,6 +24,11 @@ LAMBDA_MAX = 830.0
 # Wavelengths carried per ray; hero wavelength lives at index 0
 # (reference: ray/ray.cuh:12)
 N_RAY_WAVELENGTHS = 7
+
+# Scenes up to this many triangles are intersected densely (every ray
+# against every triangle); above it the render entry points attach an LBVH
+# (models/scenes.py::auto_bvh)
+DENSE_CUTOFF = 128
 
 # Self-intersection offset applied along the surface normal after scattering
 # (reference: materials/material.cuh:14)

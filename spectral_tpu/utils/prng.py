@@ -2,7 +2,7 @@
 
 The reference persists one curand XORWOW state per pixel-thread
 (reference: rendering/rendering.cu:120-138, seed 1984 + global index). The
-TPU-native replacement is stateless counter-based PRNG: a single root
+replacement is stateless counter-based PRNG: a single root
 ``jax.random`` key folded with (tile, sample, bounce) counters, which makes
 every sample reproducible under any sharding of the pixel/sample axes.
 

@@ -287,110 +287,6 @@ class TestSellmeierGradients:
         )
 
 
-class TestFusedSellmeierBackward:
-    """Fused-path Sellmeier B/C gradients (round-4: the hard gradients
-    at fused-backward rates). The replay kernel emits per-sample (A, B)
-    reparam scalars; folded through reparam_hero's (weight, shift)
-    tangents they must FD-match the megakernel's OWN reparameterized
-    estimator — evaluated at displaced coefficients with the frozen
-    target (b0, c0), the hero uniform plane pushed through the map T,
-    and the per-sample Jacobian weight applied. This is the same
-    frozen-target protocol that validates the XLA path
-    (TestSellmeierGradients), here deterministic against the pallas
-    forward with injected uniforms."""
-
-    def test_fused_matches_frozen_fd(self):
-        from spectral_tpu.diff.fast import _sellmeier_grads_from_replay
-        from spectral_tpu.diff.spectral_reparam import reparam_hero
-        from spectral_tpu.ops.pallas.grad_kernel import render_grads_pallas
-        from spectral_tpu.ops.pallas.render_kernel import (
-            camera_vector,
-            n_uniforms,
-            pack_scene,
-            render_rays_pallas,
-            render_rays_pallas_residuals,
-        )
-        from spectral_tpu.utils.constants import LAMBDA_MAX, LAMBDA_MIN
-
-        scene, glass = TestSellmeierGradients._slab_scene()
-        bounces = 4
-        cam = scene_camera(PRISM, 32, 32)
-        cv = camera_vector(cam)
-        px = jnp.tile(jnp.arange(32, dtype=jnp.float32), 32)
-        py = jnp.repeat(jnp.arange(32, dtype=jnp.float32), 32)
-        rand = jax.random.uniform(
-            jax.random.PRNGKey(3), (1, n_uniforms(bounces), 1024), jnp.float32
-        )
-        b0 = scene.materials.sellmeier_b[glass]
-        c0 = scene.materials.sellmeier_c[glass]
-
-        def with_bc(bg, cg):
-            return dataclasses.replace(
-                scene,
-                materials=dataclasses.replace(
-                    scene.materials,
-                    sellmeier_b=scene.materials.sellmeier_b.at[glass].set(bg),
-                    sellmeier_c=scene.materials.sellmeier_c.at[glass].set(cg),
-                ),
-            )
-
-        tri, mat, tab = pack_scene(scene)
-        xyz, hero, nvalid, powres, matres = render_rays_pallas_residuals(
-            cv, jnp.int32(5), tri, mat, tab, px, py,
-            1, bounces, 1024, True, rand,
-        )
-        g = jnp.ones((1024, 3), jnp.float32)
-        grads = render_grads_pallas(
-            mat, tab, g, hero, nvalid, powres, matres,
-            1, bounces, 1024, True, want_bg_grads=True, want_sellmeier=True,
-        )
-        d_b, d_c = _sellmeier_grads_from_replay(
-            scene.materials, glass, hero, grads[3], grads[4]
-        )
-        d_b, d_c = np.asarray(d_b), np.asarray(d_c)
-        assert np.isfinite(d_b).all() and np.isfinite(d_c).all()
-
-        span = LAMBDA_MAX - LAMBDA_MIN
-        hero0 = hero[0]
-
-        def value(bg, cg):
-            # frozen-target evaluation of the fused estimator: trace
-            # shifted heroes (so n(lambda'; b) == n*(lambda0) by the
-            # map's construction) and weight per sample by T'
-            hr, wgt = reparam_hero(hero0, bg, cg, frozen=(b0, c0))
-            rand2 = rand.at[0, 2].set((hr - LAMBDA_MIN) / span)
-            t2, m2, tb2 = pack_scene(with_bc(bg, cg))
-            out = render_rays_pallas(
-                cv, jnp.int32(5), t2, m2, tb2, px, py,
-                1, bounces, 1024, True, rand2,
-            )
-            return float(jnp.sum(out * wgt[:, None]))
-
-        # eps must be SMALL: dT/db is ~4000 nm per unit b for this flint
-        # (weak dm/dlambda), so eps=1e-3 shifts heroes 4-10 nm — across
-        # multiple 5 nm lerp cells, where the secant is not the slope
-        # (and the map even folds, weight < 0). FD converges to AD like
-        # sqrt(eps) (lerp knots + O(eps) decision flips): measured
-        # errors 190/120/67/35 at eps 3e-4/1e-4/3e-5/1e-5 against
-        # AD 1327.7, Richardson-consistent with AD as the limit
-        # (scratch/r4_selldbg.py); assert the eps=1e-5 point at 6%.
-        eps = 1e-5
-        for j in (0, 1):
-            e = jnp.zeros(3).at[j].set(eps)
-            fd = (value(b0 + e, c0) - value(b0 - e, c0)) / (2 * eps)
-            ad = float(d_b[j])
-            assert abs(ad) > 0.0, (j, ad)
-            assert abs(ad - fd) <= 0.06 * max(abs(ad), abs(fd)) + 1e-3, (
-                "b", j, ad, fd,
-            )
-        e = jnp.zeros(3).at[0].set(eps)
-        fd_c = (value(b0, c0 + e) - value(b0, c0 - e)) / (2 * eps)
-        ad_c = float(d_c[0])
-        assert abs(ad_c - fd_c) <= 0.06 * max(abs(ad_c), abs(fd_c)) + 1e-3, (
-            ad_c, fd_c,
-        )
-
-
 class TestVertexGradients:
     """Vertex gradients flow through the SMOOTH geometric quantities of the
     selected hit (t, p, normal via the differentiable plane/edge derivation).
@@ -468,248 +364,6 @@ class TestVertexGradients:
         for k, gv in g.items():
             assert gv.shape == (cornell.num_tris, 3)
             assert np.isfinite(np.asarray(gv)).all(), k
-
-
-class TestFastPathGradients:
-    def test_custom_vjp_matches_xla_grad(self, cornell):
-        """render_chunk_diff's backward IS the XLA-path VJP: gradients must
-        match jax.grad of the XLA renderer exactly. The pallas primal runs
-        under the TPU interpreter here (PRNG stubbed — value degenerate but
-        finite; the gradient path never enters pallas)."""
-        from jax.experimental.pallas import tpu as pltpu
-
-        from spectral_tpu.diff.fast import render_chunk_diff
-        from spectral_tpu.models.materials import tabulate
-        from spectral_tpu.render.wavefront import render_chunk
-
-        cam = scene_camera(CORNELL, 16, 16)
-        mats = cornell.materials
-        seed = 5
-
-        def loss_fast(m):
-            with pltpu.force_tpu_interpret_mode():
-                xyz = render_chunk_diff(m, cornell, cam, seed, 0, 0, 16, 16, 2, 2)
-            return jnp.sum(xyz[..., 1])
-
-        def loss_xla(m):
-            s = dataclasses.replace(cornell, materials=tabulate(m))
-            xyz = render_chunk(s, cam, jax.random.PRNGKey(seed), 0, 0, 16, 16, 2, 2)
-            return jnp.sum(xyz[..., 1])
-
-        g_fast = jax.grad(loss_fast, allow_int=True)(mats)
-        g_xla = jax.grad(loss_xla, allow_int=True)(mats)
-        for name in ("coeffs", "emission_power", "fuzz"):
-            np.testing.assert_allclose(
-                np.asarray(getattr(g_fast, name)),
-                np.asarray(getattr(g_xla, name)),
-                rtol=1e-6,
-                err_msg=name,
-            )
-        assert float(jnp.abs(g_fast.coeffs).sum()) >= 0.0
-        v = loss_fast(mats)
-        assert np.isfinite(float(v))
-
-
-class TestFusedBackward:
-    def test_fused_vjp_matches_fd(self, cornell):
-        """The fully fused pallas backward (grad_kernel replaying stored
-        residuals) FD-matches the megakernel's own loss with injected
-        deterministic uniforms."""
-        from jax.experimental.pallas import tpu as pltpu
-
-        from spectral_tpu.diff.fast import render_chunk_diff_fused
-        from spectral_tpu.models.materials import Materials
-
-        cam = scene_camera(CORNELL, 16, 16)
-        mats0 = cornell.materials
-        args = (cornell, cam, 1, 0, 0, 16, 16, 4, 3, True, 11)
-
-        def loss(m):
-            xyz = render_chunk_diff_fused(m, *args)
-            return jnp.sum(xyz[..., 1])
-
-        g = jax.grad(loss, allow_int=True)(mats0)
-
-        # FD on white-wall c2 (m=3) and light emission power (m=4)
-        eps = 1e-3
-        def at_coeff(m_, j_, e):
-            return dataclasses.replace(mats0, coeffs=mats0.coeffs.at[m_, j_].add(e))
-
-        fd = (float(loss(at_coeff(3, 2, eps))) - float(loss(at_coeff(3, 2, -eps)))) / (2 * eps)
-        ad = float(g.coeffs[3, 2])
-        assert np.isfinite(ad) and abs(ad - fd) <= 0.05 * max(abs(ad), abs(fd)) + 5e-3, (ad, fd)
-
-        def at_power(e):
-            return dataclasses.replace(
-                mats0, emission_power=mats0.emission_power.at[4].add(e)
-            )
-
-        fd_p = (float(loss(at_power(eps))) - float(loss(at_power(-eps)))) / (2 * eps)
-        ad_p = float(g.emission_power[4])
-        assert abs(ad_p - fd_p) <= 0.02 * max(abs(ad_p), abs(fd_p)) + 1e-4, (ad_p, fd_p)
-        assert ad_p > 0.0  # light visible: more power -> brighter
-
-    def test_fused_vjp_tris_scene(self):
-        """TRIS has 9 materials (reference scene.cu:228-257) — regression
-        for the round-1 hard M_PAD=8 cap that asserted out on this scene.
-        The fused backward must produce finite, nonzero gradients for all
-        9 materials."""
-        from spectral_tpu.diff.fast import render_chunk_diff_fused
-        from spectral_tpu.models.scenes import TRIS
-
-        scene = build_scene(TRIS)
-        cam = scene_camera(TRIS, 16, 16)
-        args = (scene, cam, 1, 0, 0, 16, 16, 2, 2, True, 17)
-
-        def loss(m):
-            xyz = render_chunk_diff_fused(m, *args)
-            return jnp.sum(xyz[..., 1])
-
-        g = jax.grad(loss, allow_int=True)(scene.materials)
-        assert g.coeffs.shape[0] == 9
-        assert np.isfinite(np.asarray(g.coeffs)).all()
-        assert np.isfinite(np.asarray(g.emission_power)).all()
-        assert float(jnp.abs(g.coeffs).sum()) > 0.0
-
-    def test_fused_bg_gradient_matches_fd(self, cornell):
-        """Background-SPD gradients through the fused backward: FD on the
-        kernel's own deterministic estimator with a sky-lit scene (black
-        bg would zero all miss contributions)."""
-        from spectral_tpu.diff.fast import render_chunk_diff_fused
-
-        scene = _sky_lit(cornell)
-        cam = scene_camera(CORNELL, 16, 16)
-        args = (cam, 1, 0, 0, 16, 16, 4, 3, True, 13)
-
-        def loss(s):
-            xyz = render_chunk_diff_fused(s.materials, s, *args)
-            return jnp.sum(xyz[..., 1])
-
-        g = jax.grad(
-            lambda bg: loss(dataclasses.replace(scene, background_spd=bg)),
-            allow_int=True,
-        )(scene.background_spd)
-        # FD on a mid-table cell
-        k = 40
-        eps = 1e-3
-        def at(e):
-            return dataclasses.replace(
-                scene, background_spd=scene.background_spd.at[k].add(e)
-            )
-        fd = (float(loss(at(eps))) - float(loss(at(-eps)))) / (2 * eps)
-        ad = float(g[k])
-        assert np.isfinite(ad)
-        assert abs(ad - fd) <= 0.05 * max(abs(ad), abs(fd)) + 5e-3, (ad, fd)
-        assert abs(ad) > 0.0  # sky visible: gradient nonzero
-
-    def test_fused_vjp_large_scene_bvh(self):
-        """Fused forward+backward on a >DENSE_CUTOFF scene: the forward
-        runs the MXU quadratic leaf sweep (pack_scene_auto) and the
-        backward replays residuals without re-intersection, so gradients
-        must FD-match exactly as at reference scale."""
-        from spectral_tpu.diff.fast import render_chunk_diff_fused
-        from spectral_tpu.models.scenes import build_tri_field
-
-        scene = build_tri_field(264, seed=0)
-        assert scene.normal.shape[0] > 128
-        cam = scene_camera(CORNELL, 16, 16)
-        mats0 = scene.materials
-        # 4 spp / 4 bounces: at 2 bounces the box-filled field occludes
-        # nearly every diffuse->light path in 512 samples, so diffuse
-        # coefficient gradients are legitimately ~0 (measured)
-        args = (scene, cam, 1, 0, 0, 16, 16, 4, 4, True, 13)
-
-        def loss(m):
-            xyz = render_chunk_diff_fused(m, *args)
-            return jnp.sum(xyz[..., 1])
-
-        g = jax.grad(loss, allow_int=True)(mats0)
-        eps = 1e-3
-
-        def at_coeff(m_, j_, e):
-            return dataclasses.replace(
-                mats0, coeffs=mats0.coeffs.at[m_, j_].add(e)
-            )
-
-        # white-wall material row 0 c2 (the dominant diffuse surface)
-        fd = (
-            float(loss(at_coeff(0, 2, eps))) - float(loss(at_coeff(0, 2, -eps)))
-        ) / (2 * eps)
-        ad = float(g.coeffs[0, 2])
-        assert np.isfinite(np.asarray(g.coeffs)).all()
-        assert abs(ad) > 0.0
-        assert abs(ad - fd) <= 0.05 * max(abs(ad), abs(fd)) + 5e-3, (ad, fd)
-
-    def test_spp_chunked_accum_matches_fd(self, cornell):
-        """render_chunk_diff_fused_accum with forced chunking (spp=4 as
-        2x2): the summed estimator's AD must FD-match its own loss, and
-        the no-chunk path (spp_chunk >= spp) must equal the plain call
-        bit-for-bit."""
-        from spectral_tpu.diff.fast import (
-            render_chunk_diff_fused,
-            render_chunk_diff_fused_accum,
-        )
-
-        cam = scene_camera(CORNELL, 16, 16)
-        mats0 = cornell.materials
-        common = (cornell, cam, 1, 0, 0, 16, 16, 4, 3, True, 11)
-
-        plain = render_chunk_diff_fused(mats0, *common)
-        nochunk = render_chunk_diff_fused_accum(mats0, *common, spp_chunk=4)
-        np.testing.assert_array_equal(np.asarray(plain), np.asarray(nochunk))
-
-        def loss(m):
-            xyz = render_chunk_diff_fused_accum(m, *common, spp_chunk=2)
-            return jnp.sum(xyz[..., 1])
-
-        g = jax.grad(loss, allow_int=True)(mats0)
-        eps = 1e-3
-
-        def at_power(e):
-            return dataclasses.replace(
-                mats0, emission_power=mats0.emission_power.at[4].add(e)
-            )
-
-        fd = (float(loss(at_power(eps))) - float(loss(at_power(-eps)))) / (2 * eps)
-        ad = float(g.emission_power[4])
-        assert ad > 0.0
-        assert abs(ad - fd) <= 0.02 * max(abs(ad), abs(fd)) + 1e-4, (ad, fd)
-
-    def test_max_residual_spp_inverts_check(self):
-        """max_residual_spp is the exact boundary of check_residual_vmem:
-        the returned spp passes, +1 raises (dense and packed-scene cases)."""
-        from spectral_tpu.ops.pallas.render_kernel import (
-            check_residual_vmem,
-            max_residual_spp,
-        )
-
-        for extra in (0, 30 * 1024 * 1024):
-            fit = max_residual_spp(8, 1024, False, extra)
-            check_residual_vmem(fit, 8, 1024, False, extra)
-            with pytest.raises(ValueError):
-                check_residual_vmem(fit + 1, 8, 1024, False, extra)
-
-    def test_packed_scene_vmem_bytes_matches_pack(self):
-        """The no-build estimator equals the launcher's measured pack
-        bytes for the MXU forms (the basis of accum's auto chunk size)."""
-        import os
-
-        from spectral_tpu.models.scenes import build_tri_field
-        from spectral_tpu.ops.pallas.render_kernel import (
-            pack_scene_bvh_mxu,
-            packed_scene_vmem_bytes,
-        )
-
-        scene = build_tri_field(264, seed=0)
-        t = scene.normal.shape[0]
-        for form in ("affine", "quad", "quad2", "quad3"):
-            a, c, _, _, _ = pack_scene_bvh_mxu(scene, form=form)
-            measured = a.size * a.dtype.itemsize + c.size * c.dtype.itemsize
-            os.environ["MXU_FORM"] = form
-            try:
-                assert packed_scene_vmem_bytes(t) == measured, form
-            finally:
-                os.environ.pop("MXU_FORM", None)
 
 
 class TestVertexWarp:

@@ -1,8 +1,9 @@
 """Multi-process (multi-host) entry: two local CPU processes coordinate
 through jax.distributed, build the global (tile, sample) mesh, and run a
-cross-process collective. This is the CPU-testable half of the pod story
-(parallel/distributed.py); chip-count scaling is covered by the virtual
-8-device mesh tests and __graft_entry__.dryrun_multichip.
+cross-process collective. This is the CPU-testable half of the multi-host
+story (parallel/distributed.py); device-count scaling is covered by the
+virtual 8-device mesh tests and __graft_entry__.dryrun_multichip. The
+workers are pinned to the CPU, so they never both open a card.
 """
 
 from __future__ import annotations
@@ -89,6 +90,29 @@ WORKER = textwrap.dedent(
 
 
 
+def test_init_distributed_public_api(monkeypatch):
+    """init_distributed goes through jax.distributed's public API only: a
+    no-op without a coordinator, one initialize() call with one, none
+    when the runtime is already up."""
+    import jax
+
+    from spectral_tpu.parallel import distributed
+
+    calls = []
+    monkeypatch.setattr(jax.distributed, "initialize", lambda **kw: calls.append(kw))
+    for var in ("SPECTRAL_COORD", "SPECTRAL_NPROC", "SPECTRAL_PROC_ID"):
+        monkeypatch.delenv(var, raising=False)
+    assert distributed.init_distributed() is False and calls == []
+    monkeypatch.setattr(jax.distributed, "is_initialized", lambda: False)
+    distributed.init_distributed("localhost:1234", 2, 1)
+    assert calls == [
+        dict(coordinator_address="localhost:1234", num_processes=2, process_id=1)
+    ]
+    monkeypatch.setattr(jax.distributed, "is_initialized", lambda: True)
+    distributed.init_distributed("localhost:1234", 2, 1)
+    assert len(calls) == 1
+
+
 class TestGlobalMeshLayout:
     """In-process coverage of the host-major mesh math (round-5 VERDICT
     item 9: failure paths + layout invariants beyond the happy path).
@@ -108,7 +132,7 @@ class TestGlobalMeshLayout:
         assert mesh.shape["sample"] == 2
         assert mesh.shape["tile"] == 4
         # device order is preserved (process-major): host 0's devices
-        # fill the first tile rows, so tile collectives cross DCN only
+        # fill the first tile rows, so tile collectives cross hosts only
         # between row blocks
         ids = [d.id for d in mesh.devices.ravel()]
         assert ids == sorted(ids)

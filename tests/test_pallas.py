@@ -1,9 +1,12 @@
-"""Pallas kernel tests (TPU interpreter on CPU).
+"""Megakernel tests through the Pallas interpreter on CPU.
 
-The intersect sweep must match the XLA dense intersector exactly; the
-megakernel (with injected uniforms, since the interpreter stubs the
-hardware PRNG) must agree with the XLA wavefront renderer statistically —
-same estimator, different RNG stream.
+The kernel is compiled for the GPU only on a card (chip_smoke.py phase 5);
+here it runs in interpret mode, which executes the same kernel body. With
+injected uniforms it is a fixed function of them: padding and block size
+must not change any ray's result, and the goldens of tests/test_goldens.py
+pin it to the images the previous megakernel produced. With its own
+counter-hash stream it must agree with the XLA wavefront statistically
+(same estimator, different random numbers).
 """
 
 from __future__ import annotations
@@ -13,13 +16,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from spectral_tpu.models.scenes import CORNELL, PRISM, build_scene, scene_camera
-from spectral_tpu.ops.intersect import nearest_hit
-from spectral_tpu.ops.pallas.intersect_kernel import intersect_pallas, pack_tris
+from spectral_tpu.models.scenes import CORNELL, build_scene, build_tri_field, scene_camera
 from spectral_tpu.ops.pallas.render_kernel import (
+    _bits_to_uniform,
+    _hash32,
     camera_vector,
     n_uniforms,
+    pack_scene,
     render_chunk_pallas,
+    render_rays_pallas,
 )
 from spectral_tpu.render.wavefront import render_chunk
 
@@ -29,33 +34,13 @@ def cornell():
     return build_scene(CORNELL)
 
 
-class TestIntersectKernel:
-    @pytest.mark.parametrize("sid", [CORNELL, PRISM])
-    def test_matches_xla_dense(self, sid):
-        scene = build_scene(sid)
-        rng = np.random.default_rng(3)
-        n = 256
-        o = jnp.asarray(rng.uniform(50, 500, (n, 3)), jnp.float32)
-        d = jnp.asarray(rng.normal(size=(n, 3)), jnp.float32)
-        ref = nearest_hit(o, d, scene)
-        t, idx, hit, front = intersect_pallas(o, d, pack_tris(scene), interpret=True)
-        np.testing.assert_array_equal(np.asarray(hit), np.asarray(ref.hit))
-        h = np.asarray(ref.hit)
-        # rtol 3e-4: f32 dot-product accumulation order differs between the
-        # sweep and XLA's gather-recompute; grazing hits see ~1e-5 relative
-        np.testing.assert_allclose(np.asarray(t)[h], np.asarray(ref.t)[h], rtol=3e-4)
-        np.testing.assert_array_equal(np.asarray(idx)[h], np.asarray(ref.tri_index)[h])
-        np.testing.assert_array_equal(np.asarray(front)[h], np.asarray(ref.front_face)[h])
-
-
 class TestMegakernel:
     def test_statistical_match_vs_xla(self, cornell):
         cam = scene_camera(CORNELL, 32, 32)
         spp, bounces = 16, 4
         xyz_p = np.asarray(
             render_chunk_pallas(
-                cornell, cam, 7, 0, 0, 32, 32, spp, bounces,
-                ray_tile=1024, interpret=True, rand_key=jax.random.PRNGKey(7),
+                cornell, cam, 7, 0, 0, 32, 32, spp, bounces, interpret=True,
             )
         )
         xyz_x = np.asarray(
@@ -64,23 +49,17 @@ class TestMegakernel:
         assert np.isfinite(xyz_p).all()
         mp = xyz_p[..., 1].mean()
         mx = xyz_x[..., 1].mean()
-        # different RNG streams: MC noise at 16 spp puts the mean within
-        # ~15-20%; the exact-equivalence oracle is the injected-rand
-        # TPU-vs-interpreter bit comparison (see CLAUDE.md round-1 notes)
+        # different random streams: MC noise at 16 spp puts the mean within
+        # ~15-20%; the exact oracle is the injected-uniform goldens
         assert abs(mp - mx) / max(mx, 1e-9) < 0.2
         corr = np.corrcoef(xyz_p[..., 1].ravel(), xyz_x[..., 1].ravel())[0, 1]
         assert corr > 0.85
 
     def test_deterministic_with_injected_rand(self, cornell):
         cam = scene_camera(CORNELL, 16, 16)
-        a = render_chunk_pallas(
-            cornell, cam, 3, 0, 0, 16, 16, 4, 3,
-            ray_tile=1024, interpret=True, rand_key=jax.random.PRNGKey(1),
-        )
-        b = render_chunk_pallas(
-            cornell, cam, 3, 0, 0, 16, 16, 4, 3,
-            ray_tile=1024, interpret=True, rand_key=jax.random.PRNGKey(1),
-        )
+        rand = jax.random.uniform(jax.random.PRNGKey(1), (4, n_uniforms(3), 256))
+        a = render_chunk_pallas(cornell, cam, 3, 0, 0, 16, 16, 4, 3, interpret=True, rand=rand)
+        b = render_chunk_pallas(cornell, cam, 3, 0, 0, 16, 16, 4, 3, interpret=True, rand=rand)
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
     def test_defocus_camera_renders(self, cornell):
@@ -95,10 +74,7 @@ class TestMegakernel:
         )
         vec = camera_vector(cam)
         assert float(vec[18]) == 1.0
-        xyz = render_chunk_pallas(
-            cornell, cam, 3, 0, 0, 16, 16, 4, 2,
-            ray_tile=1024, interpret=True, rand_key=jax.random.PRNGKey(1),
-        )
+        xyz = render_chunk_pallas(cornell, cam, 3, 0, 0, 16, 16, 4, 2, interpret=True)
         assert np.isfinite(np.asarray(xyz)).all()
 
     def test_n_uniforms(self):
@@ -106,602 +82,92 @@ class TestMegakernel:
         assert n_uniforms(4) == 17
 
 
+class TestPaddingAndBlock:
+    """Ray counts that are not a multiple of the block: the wrapper pads,
+    and every real ray's result is the one it gets inside a full block."""
+
+    SPP, BOUNCES, WIDTH, ROW = 2, 3, 1024, 512
+
+    @pytest.fixture(scope="class")
+    def reference(self, cornell):
+        cam = scene_camera(CORNELL, self.WIDTH, self.WIDTH)
+        rand = jax.random.uniform(
+            jax.random.PRNGKey(5), (self.SPP, n_uniforms(self.BOUNCES), self.WIDTH)
+        )
+        ref = render_chunk_pallas(
+            cornell, cam, 0, 0, self.ROW, self.WIDTH, 1, self.SPP, self.BOUNCES,
+            interpret=True, rand=rand,
+        )
+        return cam, rand, np.asarray(ref)[0]
+
+    @pytest.mark.parametrize("block", [64, 128])
+    @pytest.mark.parametrize("n", [1, 127, 129, 1000])
+    def test_padded_rays_match_full_block(self, cornell, reference, n, block):
+        cam, rand, ref = reference
+        out = render_chunk_pallas(
+            cornell, cam, 0, 0, self.ROW, n, 1, self.SPP, self.BOUNCES,
+            block=block, interpret=True, rand=rand[:, :, :n],
+        )
+        out = np.asarray(out)
+        assert out.shape == (1, n, 3)
+        np.testing.assert_allclose(out[0], ref[:n], rtol=1e-6, atol=1e-7)
+        assert ref[:n].max() > 0.0 or n == 1
+
+
+class TestWrapperContract:
+    def test_ray_count_must_divide_block(self, cornell):
+        cam = scene_camera(CORNELL, 8, 8)
+        tri, mat, tab = pack_scene(cornell)
+        px = jnp.zeros((100,), jnp.float32)
+        with pytest.raises(ValueError, match="block"):
+            render_rays_pallas(camera_vector(cam), 0, tri, mat, tab, px, px, 1, 1, 64, True)
+        px = jnp.zeros((96,), jnp.float32)
+        with pytest.raises(ValueError, match="block"):
+            render_rays_pallas(camera_vector(cam), 0, tri, mat, tab, px, px, 1, 1, 96, True)
+
+    def test_rand_shape_checked(self, cornell):
+        cam = scene_camera(CORNELL, 8, 8)
+        rand = jnp.zeros((2, n_uniforms(2), 63))
+        with pytest.raises(ValueError, match="rand shape"):
+            render_chunk_pallas(cornell, cam, 0, 0, 0, 8, 8, 2, 2, interpret=True, rand=rand)
+
+    def test_large_scene_refused(self):
+        field = build_tri_field(264, seed=0)
+        cam = scene_camera(CORNELL, 8, 8)
+        with pytest.raises(ValueError, match="DENSE_CUTOFF"):
+            render_chunk_pallas(field, cam, 0, 0, 0, 8, 8, 1, 1, interpret=True)
+
+
+class TestCounterHashStream:
+    def test_uniforms_are_uniform_and_decorrelated(self):
+        """The in-kernel generator: u = top 24 bits of hash(key + ctr * phi)
+        with key = hash(seed ^ hash(pixel)). Moments of U[0,1), no lag-1
+        correlation along draws or between neighbouring pixels."""
+        pix = jnp.arange(4096, dtype=jnp.int32)
+        key = _hash32(jnp.int32(1984) ^ _hash32(pix))
+        ctr = jnp.arange(64, dtype=jnp.uint32)[:, None]
+        u = np.asarray(_bits_to_uniform(_hash32(key[None, :] + ctr * jnp.uint32(0x9E3779B9))))
+        assert u.min() >= 0.0 and u.max() < 1.0
+        assert abs(u.mean() - 0.5) < 0.005
+        assert abs(u.var() - 1.0 / 12.0) < 0.002
+        assert abs(np.corrcoef(u[:-1].ravel(), u[1:].ravel())[0, 1]) < 0.01
+        assert abs(np.corrcoef(u[:, :-1].ravel(), u[:, 1:].ravel())[0, 1]) < 0.01
+
+    def test_seed_changes_stream(self, cornell):
+        cam = scene_camera(CORNELL, 16, 16)
+        a = np.asarray(render_chunk_pallas(cornell, cam, 1, 0, 0, 16, 16, 2, 3, interpret=True))
+        b = np.asarray(render_chunk_pallas(cornell, cam, 2, 0, 0, 16, 16, 2, 3, interpret=True))
+        assert np.isfinite(a).all() and a.mean() > 0.0
+        assert not np.array_equal(a, b)
+
+
 class TestShardedPallas:
     def test_runs_on_8_device_mesh(self, cornell):
-        """Megakernel under shard_map on the virtual mesh (TPU interpreter;
-        hardware PRNG is stubbed there, so this validates sharding +
-        execution, not statistics — TestMegakernel covers those)."""
-        from jax.experimental.pallas import tpu as pltpu
-
-        from spectral_tpu.models.scenes import scene_camera as sc
+        """Megakernel under shard_map on the virtual mesh (interpret mode):
+        validates sharding, per-shard seeds and the sample-axis psum."""
         from spectral_tpu.parallel import make_mesh, render_image_sharded_pallas
 
-        cam = sc(CORNELL, 16, 32)
-        xyz = render_image_sharded_pallas(
-            cornell, cam, 5, make_mesh(8), 4, 2,
-            ray_tile=1024, interpret=pltpu.InterpretParams(),
-        )
+        cam = scene_camera(CORNELL, 16, 32)
+        xyz = render_image_sharded_pallas(cornell, cam, 5, make_mesh(8), 4, 2, interpret=True)
         assert xyz.shape == (32, 16, 3)
         assert np.isfinite(np.asarray(xyz)).all()
-
-    def test_bvh_sorted_shards_match_manual_assembly(self, monkeypatch):
-        """Multi-leaf scenes route the SORTED per-bounce scheduler per
-        shard with fold_in-derived uniform planes (round 4b): the
-        sharded image must EXACTLY equal a hand-assembled per-shard
-        reference (pins the shard/seed/plane glue — the kernel itself
-        is pinned by tests/test_wavefront_sorted.py)."""
-        from spectral_tpu.models.scenes import build_tri_field
-        from spectral_tpu.models.scenes import scene_camera as sc
-        from spectral_tpu.ops.pallas import render_kernel as rk
-        from spectral_tpu.ops.pallas.wavefront_kernel import (
-            n_uniforms,
-            render_rays_wavefront,
-        )
-        from spectral_tpu.parallel import make_mesh, render_image_sharded_pallas
-        from spectral_tpu.parallel.mesh import SAMPLE_AXIS, TILE_AXIS
-
-        for k in ("MXU_FORM", "MXU_RESIDENCY", "BVH_SCHED"):
-            monkeypatch.delenv(k, raising=False)
-        scene = build_tri_field(520, seed=3)
-        mesh = make_mesh(8)
-        n_tile, n_samp = mesh.shape[TILE_AXIS], mesh.shape[SAMPLE_AXIS]
-        h, w, spp, bounces, seed = 32, 16, 2 * n_samp, 2, 5
-        cam = sc(CORNELL, w, h)
-        img = np.asarray(
-            render_image_sharded_pallas(
-                scene, cam, seed, mesh, spp, bounces,
-                ray_tile=1024, interpret=True,
-            )
-        )
-        assert img.shape == (h, w, 3) and np.isfinite(img).all()
-        assert img.mean() > 0.0
-
-        rows = h // n_tile
-        n_local = rows * w
-        pad = (-n_local) % 1024
-        cam_vec = rk.camera_vector(cam)
-        tri, mat, tab, leaf, cpk, _ = rk.pack_scene_auto(scene, cam_vec)
-        assert leaf is not None  # 520 tris -> BVH/sorted path
-        local_spp = spp // n_samp
-        ys, xs = np.meshgrid(np.arange(rows), np.arange(w), indexing="ij")
-        for ti in range(n_tile):
-            block = None
-            for si in range(n_samp):
-                px = jnp.concatenate([
-                    jnp.asarray(xs.ravel(), jnp.float32),
-                    jnp.zeros((pad,), jnp.float32),
-                ])
-                py = jnp.concatenate([
-                    jnp.asarray((ys + ti * rows).ravel(), jnp.float32),
-                    jnp.zeros((pad,), jnp.float32),
-                ])
-                key = jax.random.fold_in(
-                    jax.random.PRNGKey(seed), ti * n_samp + si
-                )
-                rand = jax.random.uniform(
-                    key,
-                    (local_spp, n_uniforms(bounces), n_local + pad),
-                    jnp.float32,
-                )
-                xyz = np.asarray(
-                    render_rays_wavefront(
-                        cam_vec, tri, mat, tab, px, py, rand,
-                        local_spp, bounces, leaf, cpk, 1024, True,
-                    )
-                )[:n_local]
-                block = xyz if block is None else block + xyz
-            np.testing.assert_array_equal(
-                img[ti * rows : (ti + 1) * rows].reshape(n_local, 3),
-                block,
-            )
-
-
-class TestVmemGuard:
-    """Residual-mode VMEM budget guard (the [spp, bounces, N] residual
-    footprint grows linearly in spp x bounces; oversized configs must fail
-    with an actionable error instead of a Mosaic OOM)."""
-
-    def test_normal_config_passes(self):
-        from spectral_tpu.ops.pallas.render_kernel import check_residual_vmem
-
-        check_residual_vmem(16, 8, 1024)  # the bench config: must fit
-
-    def test_oversized_config_raises(self):
-        from spectral_tpu.ops.pallas.render_kernel import check_residual_vmem
-
-        with pytest.raises(ValueError, match="VMEM"):
-            check_residual_vmem(512, 16, 4096)
-
-    def test_error_suggests_spp_chunk(self):
-        from spectral_tpu.ops.pallas.render_kernel import (
-            check_residual_vmem,
-            residual_vmem_bytes,
-            VMEM_BUDGET_BYTES,
-        )
-
-        with pytest.raises(ValueError, match="reduce spp") as e:
-            check_residual_vmem(1024, 8, 1024)
-        # the suggested spp must itself fit the budget
-        import re
-
-        fit = int(re.search(r"spp to <= (\d+)", str(e.value)).group(1))
-        assert residual_vmem_bytes(fit, 8, 1024, False) <= VMEM_BUDGET_BYTES
-
-
-class TestBvhKernel:
-    """In-kernel BVH sweep (pack_scene_bvh + use_bvh branch): leaf-level
-    AABB culling with pl.when, dynamic SMEM triangle fetch. Oracle: the
-    dense unrolled sweep of the same kernel with identical injected RNG
-    planes must produce the same image (same per-triangle arithmetic;
-    only sweep order differs)."""
-
-    def _render(self, scene, cam, bvh, leaf_size=32, spp=2, bounces=3):
-        from spectral_tpu.ops.pallas.render_kernel import (
-            camera_vector,
-            n_uniforms,
-            pack_scene,
-            pack_scene_bvh,
-            render_rays_pallas,
-        )
-
-        tri, mat, tab = pack_scene(scene)
-        leaf = None
-        if bvh:
-            tri, mat, tab, leaf = pack_scene_bvh(scene, leaf_size)
-        px = jnp.tile(jnp.arange(32, dtype=jnp.float32), 32)
-        py = jnp.repeat(jnp.arange(32, dtype=jnp.float32), 32)
-        rand = jax.random.uniform(
-            jax.random.PRNGKey(3), (spp, n_uniforms(bounces), 1024), jnp.float32
-        )
-        return np.asarray(
-            render_rays_pallas(
-                camera_vector(cam), jnp.int32(5), tri, mat, tab, px, py,
-                spp, bounces, 1024, True, rand,
-                leaf_pack=leaf, leaf_size=leaf_size,
-            )
-        )
-
-    def test_bvh_matches_dense_cornell(self):
-        from spectral_tpu.models.scenes import CORNELL, build_scene, scene_camera
-
-        scene = build_scene(CORNELL)
-        cam = scene_camera(CORNELL, 32, 32)
-        a = self._render(scene, cam, bvh=False)
-        b = self._render(scene, cam, bvh=True)
-        assert a.mean() > 0.0
-        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-6)
-
-    def test_bvh_matches_dense_prism(self):
-        from spectral_tpu.models.scenes import PRISM, build_scene, scene_camera
-
-        scene = build_scene(PRISM)
-        cam = scene_camera(PRISM, 32, 32)
-        a = self._render(scene, cam, bvh=False, leaf_size=8)
-        b = self._render(scene, cam, bvh=True, leaf_size=8)
-        assert a.mean() > 0.0
-        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-6)
-
-    def test_tri_field_renders(self):
-        """A procedural 600-tri scene (above DENSE_CUTOFF) through the BVH
-        path produces a finite, lit image."""
-        from spectral_tpu.models.scenes import (
-            CORNELL,
-            build_tri_field,
-            scene_camera,
-        )
-
-        scene = build_tri_field(600, seed=1)
-        assert scene.normal.shape[0] >= 600
-        cam = scene_camera(CORNELL, 32, 32)
-        img = self._render(scene, cam, bvh=True, leaf_size=16)
-        assert np.isfinite(img).all()
-        assert img.mean() > 0.0
-
-    def test_bvh_residuals_match_dense(self):
-        """The residual-saving variant (fused-backward input) under BVH ==
-        dense residuals: xyz, n_valid, power and material traces."""
-        from spectral_tpu.models.scenes import CORNELL, build_scene, scene_camera
-        from spectral_tpu.ops.pallas.render_kernel import (
-            camera_vector,
-            n_uniforms,
-            pack_scene,
-            pack_scene_bvh,
-            render_rays_pallas_residuals,
-        )
-
-        scene = build_scene(CORNELL)
-        cam = scene_camera(CORNELL, 32, 32)
-        px = jnp.tile(jnp.arange(32, dtype=jnp.float32), 32)
-        py = jnp.repeat(jnp.arange(32, dtype=jnp.float32), 32)
-        rand = jax.random.uniform(
-            jax.random.PRNGKey(4), (2, n_uniforms(3), 1024), jnp.float32
-        )
-        tri, mat, tab = pack_scene(scene)
-        dense = render_rays_pallas_residuals(
-            camera_vector(cam), jnp.int32(5), tri, mat, tab, px, py,
-            2, 3, 1024, True, rand,
-        )
-        tri2, mat2, tab2, leaf = pack_scene_bvh(scene, 16)
-        bvh = render_rays_pallas_residuals(
-            camera_vector(cam), jnp.int32(5), tri2, mat2, tab2, px, py,
-            2, 3, 1024, True, rand, leaf_pack=leaf, leaf_size=16,
-        )
-        for name, a, b in zip(
-            ("xyz", "hero", "nvalid", "power", "mats"), dense, bvh
-        ):
-            np.testing.assert_allclose(
-                np.asarray(a), np.asarray(b), rtol=1e-5, atol=1e-6,
-                err_msg=name,
-            )
-
-    @pytest.mark.parametrize("form", ["quad", "quad3"])
-    def test_mxu_residuals_match_dense(self, form):
-        """The residual-saving variant under the MXU leaf sweep (the
-        fused-diff large-scene forward) == dense residuals: all five
-        output planes, not just one coefficient's gradient.
-
-        quad: exact parity. quad3 dilates the inside test by its
-        per-tri |coeff| error bound, so a handful of grazing edge rays
-        legitimately take a different path than the dense sweep (the
-        fused backward replays quad3's OWN residuals, so gradients stay
-        self-consistent); assert xyz parity exactly and bound the
-        per-plane residual divergence to those few edge rays."""
-        from spectral_tpu.models.scenes import CORNELL, build_scene, scene_camera
-        from spectral_tpu.ops.pallas.render_kernel import (
-            camera_vector,
-            n_uniforms,
-            pack_scene,
-            pack_scene_bvh_mxu,
-            render_rays_pallas_residuals,
-        )
-
-        scene = build_scene(CORNELL)
-        cam = scene_camera(CORNELL, 32, 32)
-        px = jnp.tile(jnp.arange(32, dtype=jnp.float32), 32)
-        py = jnp.repeat(jnp.arange(32, dtype=jnp.float32), 32)
-        rand = jax.random.uniform(
-            jax.random.PRNGKey(4), (2, n_uniforms(3), 1024), jnp.float32
-        )
-        tri, mat, tab = pack_scene(scene)
-        dense = render_rays_pallas_residuals(
-            camera_vector(cam), jnp.int32(5), tri, mat, tab, px, py,
-            2, 3, 1024, True, rand,
-        )
-        a, c, mat2, tab2, leaf = pack_scene_bvh_mxu(scene, 16, form=form)
-        mxu = render_rays_pallas_residuals(
-            camera_vector(cam), jnp.int32(5), a, mat2, tab2, px, py,
-            2, 3, 1024, True, rand, leaf_pack=leaf, leaf_size=16, c_pack=c,
-        )
-        np.testing.assert_allclose(
-            np.asarray(dense[0]), np.asarray(mxu[0]), rtol=1e-4, atol=1e-5,
-            err_msg="xyz",
-        )
-        for name, x, y in zip(("hero", "nvalid", "power", "mats"), dense[1:], mxu[1:]):
-            x, y = np.asarray(x), np.asarray(y)
-            bad = ~np.isclose(x, y, rtol=1e-4, atol=1e-5)
-            frac = bad.reshape(-1, x.shape[-1]).any(axis=0).mean()
-            budget = 0.0 if form == "quad" else 0.01
-            assert frac <= budget, (
-                f"{name}: {frac:.2%} of rays diverge (budget {budget:.0%})"
-            )
-
-
-class TestBVHMxu:
-    """MXU leaf sweep (pack_scene_bvh_mxu + use_mxu branch): per-leaf
-    matmul intersection with arithmetic nearest-hit and one-hot constant
-    recovery. Oracle: the dense unrolled sweep with identical injected
-    RNG planes — in interpreter mode the two paths are bit-identical
-    (measured maxabs 0.0 on both scenes; pinned loosely here)."""
-
-    def _render(
-        self, scene, cam, mxu, leaf_size=32, spp=2, bounces=3, form="quad"
-    ):
-        from spectral_tpu.ops.pallas.render_kernel import (
-            camera_vector,
-            n_uniforms,
-            pack_scene,
-            pack_scene_bvh_mxu,
-            render_rays_pallas,
-        )
-
-        c_pack = None
-        leaf = None
-        if mxu:
-            tri, c_pack, mat, tab, leaf = pack_scene_bvh_mxu(
-                scene, leaf_size, form=form
-            )
-        else:
-            tri, mat, tab = pack_scene(scene)
-        px = jnp.tile(jnp.arange(32, dtype=jnp.float32), 32)
-        py = jnp.repeat(jnp.arange(32, dtype=jnp.float32), 32)
-        rand = jax.random.uniform(
-            jax.random.PRNGKey(3), (spp, n_uniforms(bounces), 1024), jnp.float32
-        )
-        return np.asarray(
-            render_rays_pallas(
-                camera_vector(cam), jnp.int32(5), tri, mat, tab, px, py,
-                spp, bounces, 1024, True, rand,
-                leaf_pack=leaf, leaf_size=leaf_size, c_pack=c_pack,
-            )
-        )
-
-    @pytest.mark.parametrize(
-        "sid,leaf_size,form",
-        [(0, 32, "affine"), (1, 8, "affine"), (0, 32, "quad"), (1, 8, "quad"),
-         (2, 16, "quad"), (0, 32, "quad3"), (1, 8, "quad3"), (2, 16, "quad3"),
-         (0, 32, "quad2"), (2, 16, "quad2")],
-    )
-    def test_mxu_matches_dense(self, sid, leaf_size, form):
-        from spectral_tpu.models.scenes import build_scene, scene_camera
-
-        scene = build_scene(sid)
-        cam = scene_camera(sid, 32, 32)
-        a = self._render(scene, cam, mxu=False)
-        b = self._render(scene, cam, mxu=True, leaf_size=leaf_size, form=form)
-        assert a.mean() > 0.0
-        # quad/quad3 use leaf-centered coefficients (different rounding
-        # than the dense sweep); quad3 additionally selects hits in
-        # bf16x3 — measured max|diff| 0.0 on all three scenes at this
-        # resolution, pinned loosely to allow last-ulp selection flips
-        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5)
-
-    @pytest.mark.parametrize("form", ["quad2", "quad3"])
-    def test_mxu_tri_field_matches_quad(self, form):
-        """quad3's exact-top-2 machinery (proposal margins, rebased
-        recheck planes, exact incumbent ordering — round 3) on a
-        BVH-scale procedural field: both MXU forms must agree with each
-        other and be non-trivial. A field (unlike the 42-tri box scenes)
-        exercises multi-leaf Morton packing, leaf-centered rebasing, and
-        runner-up recovery; divergences are bounded to the tol-band
-        selection class (measured 0 rays at this size)."""
-        from spectral_tpu.models.scenes import build_tri_field, scene_camera
-        from spectral_tpu.ops.pallas.render_kernel import (
-            camera_vector,
-            n_uniforms,
-            order_leaves_near_to_far_mxu,
-            pack_scene_bvh_mxu,
-            render_rays_pallas,
-        )
-
-        scene = build_tri_field(520, seed=3)
-        cam = scene_camera(0, 512, 256)
-        cv = camera_vector(cam)
-        # a 32x32 sample of the 512x256 frame (stride keeps it cheap)
-        px = jnp.tile(jnp.arange(32, dtype=jnp.float32) * 16.0, 32)
-        py = jnp.repeat(jnp.arange(32, dtype=jnp.float32) * 8.0, 32)
-        rand = jax.random.uniform(
-            jax.random.PRNGKey(9), (2, n_uniforms(4), 1024), jnp.float32
-        )
-        out = {}
-        for f in ("quad", form):
-            a, c, mat2, tab2, leaf = pack_scene_bvh_mxu(scene, 64, form=f)
-            a, c, leaf = order_leaves_near_to_far_mxu(a, c, leaf, cv[0:3])
-            out[f] = np.asarray(
-                render_rays_pallas(
-                    cv, jnp.int32(5), a, mat2, tab2, px, py,
-                    2, 4, 1024, True, rand,
-                    leaf_pack=leaf, leaf_size=64, c_pack=c,
-                )
-            )
-        assert out["quad"].mean() > 0.0
-        d = np.abs(out[form] - out["quad"]).max(axis=1)
-        frac = float((d > 1e-3).mean())
-        assert frac <= 0.005, f"{form}: {frac:.2%} rays diverge from quad"
-
-
-class TestMxuHbmResidency:
-    """HBM-resident MXU pack (per-leaf DMA staging, round 3's capacity
-    unlock): forced via MXU_RESIDENCY=hbm on a small interpret-mode field
-    so the DMA path runs in CI (auto residency stays VMEM below ~12 MB,
-    so nothing exercised it before — round-3 VERDICT weak item 1).
-    Oracle: bit-identical to the VMEM-resident pack (measured on chip,
-    BASELINE.md). Leaves are camera-ordered, which also pins the round-3
-    ADVICE high fix: the self-tri-exclusion id spaces (packed col-6 id
-    vs the HBM path's positional iota id) must agree after reordering."""
-
-    def _render(self, form, residency, monkeypatch):
-        from spectral_tpu.models.scenes import build_tri_field, scene_camera
-        from spectral_tpu.ops.pallas import render_kernel as rk
-
-        monkeypatch.setenv("MXU_RESIDENCY", residency)
-        # MXU_RESIDENCY is read at trace time inside the jitted wrapper:
-        # same-shape calls would silently reuse the cached trace
-        rk.render_rays_pallas.clear_cache()
-        scene = build_tri_field(520, seed=3)
-        cam = scene_camera(0, 512, 256)
-        cv = rk.camera_vector(cam)
-        a, c, mat2, tab2, leaf = rk.pack_scene_bvh_mxu(scene, 128, form=form)
-        a, c, leaf = rk.order_leaves_near_to_far_mxu(a, c, leaf, cv[0:3])
-        px = jnp.tile(jnp.arange(32, dtype=jnp.float32) * 16.0, 32)
-        py = jnp.repeat(jnp.arange(32, dtype=jnp.float32) * 8.0, 32)
-        rand = jax.random.uniform(
-            jax.random.PRNGKey(9), (2, n_uniforms(4), 1024), jnp.float32
-        )
-        out = np.asarray(
-            rk.render_rays_pallas(
-                cv, jnp.int32(5), a, mat2, tab2, px, py,
-                2, 4, 1024, True, rand,
-                leaf_pack=leaf, leaf_size=128, c_pack=c,
-            )
-        )
-        rk.render_rays_pallas.clear_cache()
-        return out
-
-    @pytest.mark.parametrize("form", ["quad", "quad3", "affine"])
-    def test_hbm_matches_vmem(self, form, monkeypatch):
-        a = self._render(form, "vmem", monkeypatch)
-        b = self._render(form, "hbm", monkeypatch)
-        assert a.mean() > 0.0
-        np.testing.assert_array_equal(a, b)
-
-    @pytest.mark.parametrize(
-        "form,residency", [("quad", "vmem"), ("quad3", "hbm")]
-    )
-    def test_subtile_gate_matches_whole_tile(
-        self, form, residency, monkeypatch
-    ):
-        """Sub-tile gating (MXU_GATE=4, round 4): per-group pl.when
-        gates slice the score matmuls by ray-group columns; results
-        must be BIT-identical to whole-tile gating (the per-ray
-        exactness argument of _mxu_gate_groups' docstring). Covers the
-        stale-onehot masking across both residencies and the widened
-        quad3 top-2 stitch."""
-        monkeypatch.setenv("MXU_GATE", "1")
-        a = self._render(form, residency, monkeypatch)
-        monkeypatch.setenv("MXU_GATE", "4")
-        b = self._render(form, residency, monkeypatch)
-        monkeypatch.delenv("MXU_GATE")
-        assert a.mean() > 0.0
-        np.testing.assert_array_equal(a, b)
-
-    def test_hbm_pack_layout_and_alignment_guard(self):
-        """Transposed-layout shape contract + the MXU_LEAF alignment
-        guard (round-3 ADVICE: leaf_size 64 + hbm compiled to an opaque
-        Mosaic lane-alignment error)."""
-        from spectral_tpu.models.scenes import build_tri_field
-        from spectral_tpu.ops.pallas.render_kernel import (
-            _check_hbm_leaf_alignment,
-            pack_scene_bvh_mxu,
-        )
-
-        scene = build_tri_field(520, seed=3)
-        a, c, _, _, leaf = pack_scene_bvh_mxu(scene, 128, form="quad3")
-        nl = leaf.shape[0]
-        assert a.shape == (nl, 11 * 128, 16) and a.dtype == jnp.bfloat16
-        assert c.shape == (nl, 128, 24)
-        at = jnp.swapaxes(a, 1, 2)
-        ct = jnp.swapaxes(c, 1, 2)
-        # the DMA'd trailing dims must be 128-lane multiples
-        assert at.shape[-1] % 128 == 0 and ct.shape[-1] % 128 == 0
-        _check_hbm_leaf_alignment(128)  # no raise
-        with pytest.raises(ValueError, match="MXU_LEAF"):
-            _check_hbm_leaf_alignment(64)
-
-    def test_hbm_padded_leaves_carry_valid_flag(self):
-        """The leaf-valid flag (spare col 6) is LOAD-BEARING: the
-        +BIG/-BIG 'empty AABB' on chunk-padding leaves does NOT fail
-        the min/max slab test (an inverted box is equivalent to
-        [-BIG, BIG], which every alive ray hits), so without the flag
-        every padded leaf issued an out-of-bounds per-leaf pack DMA —
-        a deterministic TPU runtime abort on >=50k sorted renders
-        (round 4b, scratch/r4_abort_repro.log). Pins: real leaves get
-        col6 == 1, padding gets 0, and the merged f32 pack carries c
-        as the last 8 sublanes."""
-        from spectral_tpu.models.scenes import build_tri_field
-        from spectral_tpu.ops.pallas.render_kernel import (
-            _hbm_transpose_and_pad,
-            pack_scene_bvh_mxu,
-        )
-
-        scene = build_tri_field(520, seed=3)
-        a, c, _, _, leaf = pack_scene_bvh_mxu(scene, 128, form="quad")
-        nl = leaf.shape[0]
-        at, ct, lt, gt = _hbm_transpose_and_pad(a, c, leaf)
-        assert lt.shape[0] % 256 == 0 and lt.shape[0] > nl
-        np.testing.assert_array_equal(np.asarray(lt[:nl, 6]), 1.0)
-        np.testing.assert_array_equal(np.asarray(lt[nl:, 6]), 0.0)
-        # padded AABBs keep the inverted-box convention
-        assert float(lt[nl, 0]) > 0 and float(lt[nl, 3]) < 0
-        # merged f32 pack: a gains c's 8 sublanes, K-lane block intact;
-        # pack rows zero-padded to a GROUP multiple (round-5 group DMA
-        # stages whole 8-leaf blocks — mixed groups must stay in bounds)
-        nl8 = -(-nl // 8) * 8
-        assert at.shape == (nl8, 16 + 8, 5 * 128)
-        np.testing.assert_array_equal(
-            np.asarray(at[:nl, 16:24, 0:128]),
-            np.asarray(jnp.swapaxes(c, 1, 2)),
-        )
-        np.testing.assert_array_equal(np.asarray(at[nl:]), 0.0)
-        # 8-leaf group table (MXU_GROUP8): union AABBs + any-valid,
-        # followed (round 5, MXU_GROUP_L2) by the 64-leaf super-group
-        # rows padded to a 16-multiple for the [_, 128] row packing
-        ng = lt.shape[0] // 8
-        nsg = ng // 8
-        nsg_pad = -(-nsg // 16) * 16
-        assert gt.shape == (ng + nsg_pad, 8)
-        gg = gt[:ng]
-        np.testing.assert_array_equal(
-            np.asarray(gg[:, 0:3]),
-            np.asarray(lt[:, 0:3].reshape(-1, 8, 3).min(axis=1)),
-        )
-        np.testing.assert_array_equal(
-            np.asarray(gg[:, 6]),
-            np.asarray(lt[:, 6].reshape(-1, 8).max(axis=1)),
-        )
-        # the first group holds the 5 real leaves -> valid; the last
-        # is all-padding -> invalid with an inverted union AABB
-        assert float(gg[0, 6]) == 1.0 and float(gg[-1, 6]) == 0.0
-        assert float(gg[-1, 0]) > 0 and float(gg[-1, 3]) < 0
-        # super rows: union over 8 groups + any-valid; alignment
-        # padding rows are valid-0 (never indexed)
-        sup = gt[ng : ng + nsg]
-        np.testing.assert_array_equal(
-            np.asarray(sup[:, 0:3]),
-            np.asarray(gg[:, 0:3].reshape(-1, 8, 3).min(axis=1)),
-        )
-        np.testing.assert_array_equal(
-            np.asarray(sup[:, 6]),
-            np.asarray(gg[:, 6].reshape(-1, 8).max(axis=1)),
-        )
-        np.testing.assert_array_equal(
-            np.asarray(gt[ng + nsg :, 6]), 0.0
-        )
-
-    def test_positional_id_invariant_after_ordering(self):
-        """order_leaves_near_to_far_mxu must leave col 6 equal to the
-        positional id l*K + row (the id space the kernel's self-tri
-        exclusion uses in both residencies)."""
-        from spectral_tpu.models.scenes import build_tri_field
-        from spectral_tpu.ops.pallas.render_kernel import (
-            order_leaves_near_to_far_mxu,
-            pack_scene_bvh_mxu,
-        )
-
-        scene = build_tri_field(520, seed=3)
-        a, c, _, _, leaf = pack_scene_bvh_mxu(scene, 64, form="quad3")
-        a2, c2, leaf2 = order_leaves_near_to_far_mxu(
-            a, c, leaf, jnp.asarray([278.0, 278.0, -800.0])
-        )
-        nl, k = c2.shape[0], c2.shape[1]
-        # the ordering must be a real permutation for this to be non-vacuous
-        assert not np.array_equal(np.asarray(leaf2), np.asarray(leaf))
-        np.testing.assert_array_equal(
-            np.asarray(c2[:, :, 6]),
-            np.arange(nl * k, dtype=np.float32).reshape(nl, k),
-        )
-
-
-class TestDenseImplMxu:
-    """DENSE_IMPL=mxu routes a small scene through the single-leaf MXU
-    sweep via render_chunk_pallas; with injected rand and no swizzle the
-    result matches the scalar dense sweep to rounding (interpret mode;
-    the quad form's leaf-centered coefficients change last-ulp
-    arithmetic). Measured 3x SLOWER than the scalar sweep on chip
-    (BASELINE.md MXU-dense study) — kept as an A/B dispatch, never the
-    default."""
-
-    def test_matches_scalar_dense(self, monkeypatch):
-        from spectral_tpu.models.scenes import build_scene, scene_camera
-        from spectral_tpu.ops.pallas import render_kernel as rk
-
-        scene = build_scene(0)
-        cam = scene_camera(0, 64, 24)
-        key = jax.random.PRNGKey(7)
-
-        def render():
-            rk._render_chunk_pallas_jit.clear_cache()
-            out = np.asarray(
-                rk.render_chunk_pallas(
-                    scene, cam, 3, 0, 0, 64, 24, 2, 3,
-                    ray_tile=768, interpret=True, rand_key=key,
-                )
-            )
-            rk._render_chunk_pallas_jit.clear_cache()
-            return out
-
-        monkeypatch.setenv("DENSE_IMPL", "scalar")
-        a = render()
-        monkeypatch.setenv("DENSE_IMPL", "mxu")
-        b = render()
-        assert a.mean() > 0.0
-        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5)
